@@ -8,8 +8,8 @@ test-slow:
 bench:
 	python bench.py
 
-validate:
-	python scripts/validate_tpu.py
+smoke:
+	python chip_smoke.py
 
 configs:
 	python scripts/run_configs.py --quick
@@ -20,4 +20,4 @@ serve:
 native:
 	$(MAKE) -C native
 
-.PHONY: test test-slow bench validate configs serve native
+.PHONY: test test-slow bench smoke configs serve native

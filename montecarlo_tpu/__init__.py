@@ -1,8 +1,8 @@
-"""montecarlo_tpu — a TPU-native Monte Carlo Texas Hold'em poker engine in JAX.
+"""montecarlo_tpu — a Monte Carlo Texas Hold'em poker engine in JAX.
 
 A ground-up rebuild of the capabilities of sabraham/Monte-Carlo (a Clojure
-core.async poker server, reference at /root/reference) as idiomatic
-JAX/XLA/Pallas array code:
+core.async poker server) as idiomatic JAX/XLA/Pallas array code, run on
+an NVIDIA GPU:
 
 - The game state machine (deal, blinds, betting rounds, pot/side-pot
   splitting, showdown) is a pure fixed-shape ``step`` function, ``vmap``-ed
@@ -10,12 +10,13 @@ JAX/XLA/Pallas array code:
   reference ``board.clj:131-138`` / ``player.clj:58-69``).
 - Deck shuffles are counter-based threefry permutations (replaces
   ``(shuffle COMPLETE-DECK)``, reference ``board.clj:148``).
-- 7-card hand ranking is a branchless bitmask evaluator (pure jnp and a fused
-  Pallas TPU kernel), producing a packed uint32 key whose integer order equals
+- 7-card hand ranking is a branchless bitmask evaluator (pure jnp and fused
+  Pallas kernels on the Triton route), producing a packed uint32 key whose integer order equals
   the reference's lexicographic ``[category hit-ranks kickers]`` compare
   (reference ``hand_evaluator.clj:112-133``).
 - Scale-out is ``shard_map``/``pjit`` over a ``jax.sharding.Mesh`` with
-  ``psum`` reductions over ICI (the reference has no multi-node story).
+  ``psum`` reductions between the cards (the reference has no multi-node
+  story).
 - The TCP/JSON room protocol (``new_room``/``join_room``/``play``/``hand``/
   ``whoami``, reference ``server.clj``) survives as a thin asyncio host layer
   over the device engine.

@@ -11,7 +11,7 @@ Array encodings of the reference's dynamic structures:
 - All per-player arrays are indexed by **hand-order position** (position 0
   posts the small blind this hand), not by a fixed seat: dealing, blinds,
   and the play-order head are then pure static-index/arithmetic ops with no
-  dynamic gathers (which lower poorly inside vmapped scans on TPU). The
+  dynamic gathers (which lower poorly inside vmapped scans). The
   players-list rotation at hand end (``gameplay.clj:136-137``) is a
   constant ``roll`` of the persistent arrays; ``button`` (+1 per hand) maps
   positions to stable seats only at the host boundary:

@@ -3,8 +3,8 @@
 The reference exists "to test AIs" (``README.md:9``) but contains none.
 Here the engine's pure step function makes the whole game differentiable-
 adjacent: a policy network plays millions of vmapped hands per second and
-trains with REINFORCE entirely on device (features on the VPU, the MLP on
-the MXU, the game itself the same ``lax.scan`` as self-play).
+trains with REINFORCE entirely on device (features, the MLP and the game
+itself in one jitted program, the same ``lax.scan`` as self-play).
 """
 
 from montecarlo_tpu.models.features import state_features, NUM_FEATURES  # noqa: F401

@@ -29,18 +29,21 @@ deterministic outside a ~2.5/gain band around the threshold (inside it
 the bot plays a mix — still a valid fixed strategy for a lower-bound
 probe).
 
-**Why the rectified pair, not an affine offset:** TPU matmuls round
-their *inputs* to bf16 (default XLA precision, and the kernel's MXU
-contractions likewise). An offset construction ``h = s + C`` with C=50
-feeds the next layer a value whose bf16 ulp is 0.25 — which silently
-erases any score term smaller than that (measured: a made-hand-category
-bot, s in {0, 0.125}, degenerated to its lo action *everywhere* on
-hardware while exact on CPU). The rectified pair keeps the carried
-values near zero, where bf16 granularity is relative (~0.4%), so the
-rule survives compiled Mosaic and XLA-on-TPU bit-for-policy. The same
-quantization applies to *trained* nets' hidden activations on TPU —
-that is a property of the training/eval pipeline itself (both sides of
-every cross-validation share it), not a defect of this module.
+**Why the rectified pair, not an affine offset:** a matrix unit may
+round its *inputs* to fewer mantissa bits than float32: bf16 (8 bits)
+under XLA's default precision on some accelerators, TF32 (10 bits) for a
+float32 product on a GPU unless a precision is named. An offset
+construction ``h = s + C`` with C=50 feeds the next layer a value whose
+bf16 ulp is 0.25 — which silently erases any score term smaller than
+that (measured: a made-hand-category bot, s in {0, 0.125}, degenerated
+to its lo action everywhere under bf16 input rounding while exact on
+CPU). The rectified pair keeps the carried values near zero, where the
+rounding is relative (~0.4% in bf16), so the rule survives every
+precision at or finer than bf16. TF32 rounds finer than bf16, so every
+bf16-safe bound below also holds there; the policy-net products of
+this repo run at ``policy_net.MATMUL_PRECISION`` (full float32) in any
+case. Trained nets saw the same bf16 rounding of their hidden
+activations when they were trained and evaluated (ROADMAP R2).
 
 Feature indices (models/features.py:state_features): 14 = made-hand
 category / 8, 16/17 = hole ranks / 14, 18 = suited, 19 = paired.
@@ -122,7 +125,8 @@ def ladder_bot(score1, t1: float, score2, t2: float,
     constant 30 on ``bot``), so rule 1 strictly dominates rule 2 which
     strictly dominates the fallback once a ramp saturates.
 
-    bf16 safety (see module docstring): the ramps saturate at ``cap`` =
+    bf16 safety (see module docstring; TF32 and float32 round finer, so
+    the bound holds there too): the ramps saturate at ``cap`` =
     0.25 and the pre-cap hidden values stay O(1) for feature-scale
     scores, so matmul-input rounding (~0.4% relative) perturbs logits by
     <<  the 30+ logit margins. The transition band has width cap/slope

@@ -27,12 +27,11 @@ nodes are replayed as targets (KL-to-self), so distillation cannot
 silently wreck the streets the solver says nothing about.
 
 All of it is [N, 24] x MLP supervised learning — pure XLA mat-ops,
-CPU-friendly, no TPU time needed (the chip stays free for the
-training queue).
+CPU-friendly, no accelerator needed.
 
 The reference ships no solver or imitation machinery; this is
 rebuild-added AI-testing capability for its stated purpose
-("test AIs", /root/reference/README.md:9).
+("test AIs", the reference's README.md:9).
 """
 
 from __future__ import annotations

@@ -18,13 +18,13 @@ at adaptive-CMA LB 0.349 bb/hand — the first artifact below the
 es2..es8 ~1.2 bb plateau.
 
 Host-side NumPy by design: the leash is evaluated per ES candidate
-between Pallas kernel launches (scripts/train_es_kernel.py), so it
+between packed-engine calls (scripts/train_es_kernel.py), so it
 must not trace/compile per candidate. The forward chain mirrors
 models.policy_net.policy_logits exactly (action 0 = fold);
 tests/test_leash.py pins the two paths against each other.
 
 Reference tie-in: rebuild-added AI-training machinery in service of
-the reference's stated purpose ("test AIs", /root/reference/README.md:9).
+the reference's stated purpose ("test AIs", the reference's README.md:9).
 """
 
 import numpy as np

@@ -22,6 +22,12 @@ I32 = jnp.int32
 
 NUM_ACTIONS = 4  # fold, call/check, raise 2bb, raise pot
 
+# Precision of every policy-net product (here and in the packed-block
+# engine): full float32. A GPU would otherwise run float32 products in
+# TF32; the products are tiny next to the engine step, and one stated
+# precision keeps the two net pipelines on the same argmax.
+MATMUL_PRECISION = jax.lax.Precision.HIGHEST
+
 
 class MLPParams(NamedTuple):
     w1: jax.Array
@@ -47,10 +53,13 @@ def init_params(key, hidden: int = 64) -> MLPParams:
 
 
 def policy_logits(params: MLPParams, feats) -> jax.Array:
-    """[..., NUM_FEATURES] -> [..., NUM_ACTIONS] (MXU matmuls)."""
-    h = jax.nn.relu(feats @ params.w1 + params.b1)
-    h = jax.nn.relu(h @ params.w2 + params.b2)
-    return h @ params.w3 + params.b3
+    """[..., NUM_FEATURES] -> [..., NUM_ACTIONS] in ``MATMUL_PRECISION``."""
+    def dense(x, w, b):
+        return jnp.matmul(x, w, precision=MATMUL_PRECISION) + b
+
+    h = jax.nn.relu(dense(feats, params.w1, params.b1))
+    h = jax.nn.relu(dense(h, params.w2, params.b2))
+    return dense(h, params.w3, params.b3)
 
 
 def action_from_index(idx, state) -> jax.Array:

@@ -152,7 +152,7 @@ def _pair_exact_scores(dead, hm, vm, board_slots):
 def matchup_equity_matrix_exact(m_chunk: int = 64,
                                 board_chunk: int = 1 << 17) -> np.ndarray:
     """EXACT [169, 169] all-in equity matrix: every matchup enumerated over
-    all C(48,5) boards (no Monte Carlo noise). ~100 s on one TPU chip."""
+    all C(48,5) boards (no Monte Carlo noise); an accelerator job."""
     _, hero, villain, _ = _representatives()
     hh = np.repeat(np.arange(169), 169)
     vv = np.tile(np.arange(169), 169)
@@ -246,7 +246,7 @@ def matchup_equity_matrix_cr(elem_budget: int = 1 << 27,
     over villain-b combos with true conditional weights.
 
     Returns (eq_cr [169, 169] float64, n_pairs [169, 169] int64).
-    ~2.3e12 device comparisons — minutes on a TPU chip; use the committed
+    ~2.3e12 device comparisons — an accelerator job; use the committed
     artifact (``data/pushfold_eq169_cr.npz``) rather than rebuilding.
     """
     import sys

@@ -35,7 +35,7 @@ tie 0.5, loss 0); the game is constant-sum (P1 + P2 = pot):
 Solver: CFR+ (Tammelin 2014; public method) with alternating updates,
 regret-matching+, and linearly-weighted average strategies. Everything
 is vectorized over combos — each traversal is a handful of [H, V]
-matrix-vector products (MXU-shaped on TPU; f32 is ample at these
+elementwise float32 products and sums (f32 is ample at these
 magnitudes). Convergence is certified by the exploitability gap
 ``br1 + br2 - pot`` (zero at Nash), not by iteration count.
 """

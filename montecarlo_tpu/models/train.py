@@ -95,8 +95,8 @@ def make_update_step(
 ):
     """(opt_init, update) where ``update(params, opt_state, key)`` plays
     ``tables`` fresh hands and applies one advantage-normalized REINFORCE
-    step. One jitted program per update — scanning many updates into a
-    single XLA program was measured to destabilize the TPU worker."""
+    step. One jitted program per update (the host loop in
+    ``train_policy`` drives it)."""
     import optax
 
     opt = optax.adam(lr)

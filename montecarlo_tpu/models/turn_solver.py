@@ -38,8 +38,8 @@ TURN start, so a line's river utilities are the river-game utilities
 Solver: CFR+ with alternating updates and linear averaging, exactly as
 in river_solver.py, with river infosets indexed [line, river, combo].
 Convergence is certified by ``br1 + br2 - pot``. Everything is
-vectorized over combos ([C, C] mat-ops, MXU-shaped); rivers run under a
-``lax.fori_loop`` so memory stays at one [C, C] panel per step.
+vectorized over combos ([C, C] panels, ``SOLVER_PRECISION``); rivers run
+under a ``lax.fori_loop`` so memory stays at one [C, C] panel per step.
 
 Validation reductions (tests/test_turn_solver.py):
 - ``river_betting=False`` collapses every line to a showdown for
@@ -52,7 +52,7 @@ Showdowns ride the same certified evaluator key as the engine
 (``hand_evaluator.clj:112-133`` semantics via ``ops/evaluator.py``).
 The reference has no solver machinery; this is rebuild-added
 AI-testing ground truth for its stated purpose ("test AIs",
-/root/reference/README.md:9).
+the reference's README.md:9).
 """
 
 from __future__ import annotations
@@ -64,6 +64,11 @@ import jax.numpy as jnp
 import numpy as np
 
 F32 = jnp.float32
+
+# Every device product of the solver is an elementwise float32 multiply
+# followed by a float32 sum: there is no dot operation, so no TF32 (or
+# other reduced-precision matrix unit) rounding on any accelerator.
+SOLVER_PRECISION = "float32 elementwise products and sums (no dot ops)"
 
 LINES = ("cc", "xbc", "bc", "brc")
 
@@ -179,6 +184,7 @@ def make_turn_river_game(board4: Sequence[int],
              | (combos[:, None, 1] == combos[None, :, 1]))
     mask0 = (~clash).astype(np.float32)
     # valid rivers per pair; pairs with none are dead (single-river games)
+    # (a host numpy product of 0/1 values: exact small integer counts)
     free = 1.0 - has_r                                        # [Rn, C]
     cnt = free.T @ free                                       # [C, C]
     mask0 = mask0 * (cnt > 0)
@@ -338,7 +344,7 @@ def solve_turn_river(game: TurnRiverGame, iterations: int = 1000,
     sweeps shard over the chance axis (river infosets and eval keys
     split across devices; each device sweeps its local rivers and the
     per-line street-boundary entry values V1/V2 are ``psum``'d over
-    ICI). The turn updates are replicated — they are O(C) next to the
+    the mesh). The turn updates are replicated — they are O(C) next to the
     O(Rn * C^2) river work. Equivalent to the single-device solve up to
     f32 summation order in the psum (tests/test_turn_solver.py pins EV
     agreement within the two certificates on the CPU mesh)."""

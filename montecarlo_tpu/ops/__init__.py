@@ -3,7 +3,8 @@
 - ``ref_evaluator``: slow, obviously-correct Python oracle mirroring the
   reference's naive combinatorial evaluator (``hand_evaluator.clj``).
 - ``evaluator``: branchless bitmask evaluator in pure jnp (vmap/jit-safe).
-- ``pallas_equity``: fused Pallas TPU kernel (sample + evaluate + reduce).
+- ``pallas_equity``: fused Pallas kernels on the Triton route (GPU):
+  sample + evaluate + reduce, one block of rollouts per program.
 """
 
 from montecarlo_tpu.ops.ref_evaluator import ref_eval5, ref_eval_best  # noqa: F401
@@ -15,9 +16,8 @@ from montecarlo_tpu.ops.evaluator import (  # noqa: F401
 
 
 def __getattr__(name):
-    # Pallas kernels import lazily (TPU-only primitives).
-    if name in ("equity_vs_hand_pallas", "equity_sweep_pallas",
-                "equity_multiway_pallas"):
+    # Pallas kernels import lazily (they compile for the GPU only).
+    if name in ("equity_vs_hand_pallas", "equity_sweep_pallas"):
         import importlib
 
         return getattr(

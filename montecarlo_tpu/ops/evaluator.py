@@ -87,8 +87,8 @@ def suit_masks_from_cards(cards):
 def eval_masks_impl(m0, m1, m2, m3):
     """Evaluate suit masks to the packed uint32 hand key (elementwise).
 
-    Raw implementation — also called from inside Pallas kernels (every op
-    is an elementwise VPU op, so it lowers directly to Mosaic).
+    Raw implementation — also called from inside the Pallas kernels and
+    the packed engine (every op is elementwise integer arithmetic).
     """
     zero = jnp.zeros_like(m0)
     present = m0 | m1 | m2 | m3
@@ -205,7 +205,7 @@ def eval_masks_cmp_impl(m0, m1, m2, m3):
         two pair:       top-2 pair bits << 4 | kicker (19 bits)
         pair:           p << 15 | top-3 kicker bits   (19 bits)
         high:           top-5 bits of present         (15 bits)
-    Max 23 bits: int32 order == uint32 order (Mosaic-safe).
+    Max 23 bits: int32 order == uint32 order.
     """
     present = m0 | m1 | m2 | m3
 

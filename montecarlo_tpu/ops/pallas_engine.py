@@ -1,18 +1,13 @@
-"""Whole-step Pallas TPU kernel: the complete betting engine in VMEM.
+"""Whole-step betting engine on packed table blocks.
 
-The measured lesson of the XLA perpetual program (PERF.md): the fused
-``step_table`` scan is bound by HBM materialization between fusion
-boundaries, not by VPU op count — levels algebra, layout, caps, and carry
-experiments all moved it <±8%. This kernel removes that bound entirely:
-a block of 1024 tables (one (8, 128) tile per state row) lives in VMEM for
-the whole launch, and HBM sees exactly one state read + one write per
-launch instead of per step.
-
-Layout: tables occupy the (8, 128) trailing tile; seat/layer/pot axes are
-small LEADING dims of stacked arrays ([P, 8, 128] seats, [L, 8, 128]
-levels, [4, L, 8, 128] per-street pot slots), so the whole step traces to
-a few hundred ops (a python-list unrolling of the same logic measured 60+s
-of XLA compile for the settlement block alone).
+The complete ``step_table`` (all three rule sets) written as one block
+program over a packed state: a block of 1024 tables (an (8, 128) tile per
+state row) whose seat/layer/pot axes are small LEADING dims of stacked
+arrays ([P, 8, 128] seats, [L, 8, 128] levels, [4, L, 8, 128] per-street
+pot slots), so the whole step traces to a few hundred elementwise ops. The
+block program is plain JAX: ``jax.vmap`` runs it over the blocks and
+``lax.fori_loop`` over the steps, and XLA compiles and fuses it for the
+device at hand.
 
 Semantics: all three rule sets of ``engine/step.py`` on the levels street
 form (``engine/street.py``), selected statically:
@@ -36,71 +31,65 @@ write the slot of the finished street; settlement scans all 4*L rows.
 Payouts are per-layer independent, so the slot layout pays identically to
 the reference's appended pot list.
 
-Beyond the random-policy perpetual form, the kernel hosts: per-position
+Beyond the random-policy perpetual form, the engine hosts: per-position
 and per-seat settled-delta meters, tournament bust records + placements
 (``tournament_results``), and seat-pinned policy-NET evaluation
 (``selfplay_net_eval_kernel``: the 24 decision features built on block
-arrays bit-exact to ``models/features.py``, dense layers as direct
-[out, in] x [in, 8, 128] MXU contractions, Gumbel-argmax sampling).
+arrays bit-exact to ``models/features.py``, dense layers as [out, in] x
+[in, 8, 128] contractions, Gumbel-argmax sampling).
 
 Two modes:
 
 - ``deterministic``: per-step raw actions and per-hand 17-card deals come
-  from input refs. No PRNG -> runs under ``interpret=True`` on CPU, where
-  ``tests/test_pallas_engine.py`` pins trajectory equality against the XLA
-  engine driven with the same injected streams.
-- ``prng``: the production form — policy draws and deals use the hardware
-  PRNG (``pltpu.prng_*``), one u32 word per bounded draw (the measured
-  bias trade documented in ``ops/pallas_equity.py``). Distributionally
-  identical to ``rollout.policy.random_policy`` + threefry deals; validated
-  on hardware by ``scripts/validate_tpu.py`` (compiled deterministic mode
-  vs the XLA engine, plus statistical agreement of the PRNG mode).
+  from inputs. ``tests/test_pallas_engine.py`` pins trajectory equality
+  against the XLA engine driven with the same injected streams.
+- ``prng``: the production form — policy draws and deals come from the
+  counter-based generator of ``ops/counter_rng.py``, keyed by (launch
+  seed, global table index, step, draw), one 32-bit word per bounded
+  draw. Distributionally identical to ``rollout.policy.random_policy`` +
+  uniform deals (``tests/test_pallas_engine.py`` checks the statistics).
 """
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+from montecarlo_tpu.models.policy_net import MATMUL_PRECISION
+from montecarlo_tpu.ops.counter_rng import bits, stream_keys, uniform_int
 
 I32 = jnp.int32
 
-# Tables per block = sublanes x 128 lanes. Bigger tiles give each op more
-# independent lanes (ILP) at the cost of VMEM; override for experiments
-# via MC_ENGINE_TILE="32,128".
-TILE = tuple(int(x) for x in
-             os.environ.get("MC_ENGINE_TILE", "8,128").split(","))
+# Tables per block: the (8, 128) tile every state row is stored as.
+TILE = (8, 128)
 TABLES_PER_BLOCK = TILE[0] * TILE[1]
 
-# Engine steps per fori_loop iteration (PRNG mode). Unrolling amortizes
-# the loop-iteration boundary; measured +4.6% at 2 and flat at 4 (PERF.md
-# round-3 table), so 2 is the default. Draw order is unchanged, so
-# trajectories are bit-identical for any unroll (verified: identical hand
-# counts at 2^20 tables x 512 steps for 1/2/4).
-UNROLL = int(os.environ.get("MC_ENGINE_UNROLL", "2"))
+# Betting steps per settle pass (PRNG mode). Tables whose hand ends wait
+# (no-op, ~DEFER/2 idle slots) until the next pass settles, rotates, and
+# redeals them; the settle tensors are the bulk of a fused step, so
+# evaluating them once per DEFER slots is the engine's biggest lever.
+# Per-table hand SEQUENCES are identical for any DEFER (same rules,
+# different idle timing). Launch lengths that DEFER does not divide fall
+# back to settling every step.
+DEFER = 16
 
-# Deferred settlement (PRNG mode): run DEFER betting steps per settle
-# pass. Tables whose hand ends wait (no-op, ~DEFER/2 idle slots) until
-# the next pass settles, rotates, and redeals them. The settle tensors
-# are 74% of the fused step (PERF.md round-3 ablation), so tracing them
-# once per DEFER slots is the engine's biggest lever. DEFER=1 restores
-# the fused per-step form. Per-table hand SEQUENCES are identical either
-# way (same rules, different idle timing); validated statistically on
-# hardware (scripts/validate_tpu.py). Measured sweep (2^20 tables x 512
-# slots, v5e): 1 -> 12.65M hands/s, 4 -> 34.1M, 8 -> 47.4M, 16 -> 54.9M
-# (0.55 ns/slot; idle cost (U-1)/2 extra slots/hand matches theory);
-# the slot-cost model slot = 0.37 + 2.83/U puts the optimum at ~16-20.
-DEFER = int(os.environ.get("MC_ENGINE_DEFER", "16"))
+# Inner betting-loop unroll (PRNG mode); draw order is unchanged, so
+# trajectories are identical for any unroll.
+UNROLL = 2
+
+# Counter layout of one engine step's draws: policy words at 0-1, Gumbel
+# words at 2.., deal words at DEAL_DRAW... A settle pass draws with the
+# counter of the last betting step it follows.
+STEP_DRAWS = 64
+DEAL_DRAW = 32
 
 # Street layer capacity. Reference rules: L=6 covered 51.7M audited random
 # 6-max hands with zero overflows (PERF.md) — levels come only from blinds
 # (2) and policy-bounded raises (2/street). Standard rules additionally
 # insert a level per distinct all-in-for-less (up to P-1), so the cap is
-# wider. The kernel latches an overflow flag regardless.
+# wider. The engine latches an overflow flag regardless.
 L = 6
 L_STANDARD = 10
 
@@ -164,7 +153,7 @@ def _pack(st, layout, F):
 
 
 def _iota(n):
-    """[n, 1, 1] leading-axis iota (TPU needs >=2D iota)."""
+    """[n, 1, 1] leading-axis iota (broadcasts over the (8, 128) tile)."""
     return jax.lax.broadcasted_iota(I32, (n, 1, 1), 0)
 
 
@@ -233,7 +222,7 @@ def _street_merge(lvl, ln, contrib, do):
     n_rows = lvl.shape[0]
     matched = jnp.any(contrib[None] == lvl[:, None], axis=1)  # [L, 8, 128]
     keep = matched & (lvl > 0)
-    # prefix sum over the (static, small) layer axis — Mosaic has no cumsum
+    # prefix sum over the (static, small) layer axis
     runs, run = [], None
     for j in range(n_rows):
         run = keep[j].astype(I32) if run is None else run + keep[j]
@@ -264,15 +253,13 @@ def _suit_masks(cards):
             pb & mask15, jnp.right_shift(pb, 16) & mask15]
 
 
-def _sample_cards(shape, k):
+def _sample_cards(key, step, k):
     """k distinct cards from 52 via ordered draws + bubble insertion
-    (pallas_equity._sample_cards with an empty dead list). Returns
-    [k] + shape stacked card ids."""
-    draws = [
-        (pltpu.prng_random_bits(shape).astype(jnp.uint32)
-         % jnp.uint32(52 - t)).astype(I32)
-        for t in range(k)
-    ]
+    (``rollout.equity.sample_distinct`` on the counter generator): deal
+    words DEAL_DRAW.. of ``step``. Returns [k] + key.shape card ids."""
+    assert DEAL_DRAW + k <= STEP_DRAWS, k
+    base = step * STEP_DRAWS + DEAL_DRAW
+    draws = [uniform_int(key, base + t, 52 - t) for t in range(k)]
     sorted_chosen, cards = [], []
     for t in range(k):
         x = draws[t]
@@ -285,14 +272,16 @@ def _sample_cards(shape, k):
         new_sorted.append(carry)
         sorted_chosen = new_sorted
         cards.append(x)
-    return jnp.stack(cards, axis=0)
+    # Materialize the deal: left to itself the compiler inlines the whole
+    # insertion network into every consumer in the settle pass, and the
+    # fused expressions (and compile times) blow up.
+    return jax.lax.optimization_barrier(jnp.stack(cards, axis=0))
 
 
 def _settle_payout(st, pots_amt, pots_set, pots_n, in_hand, P, reference):
     """Showdown evaluation + per-layer payout (step.py:settle_showdown):
     rank every seat's 7 cards with the cmp key, then pay each of the 4*L
-    pot layers to its best eligible seat(s). Module-level so ablation
-    scripts can stub it (scripts/exp_step_split.py)."""
+    pot layers to its best eligible seat(s)."""
     from montecarlo_tpu.ops.evaluator import eval_masks_cmp_impl
 
     board_masks = _suit_masks([st["board"][i] for i in range(5)])
@@ -331,13 +320,13 @@ def _step_nosettle(st, raw_action, P, sb, bb, rules="reference"):
     the no-head guard) until ``_settle_pass`` processes it. The per-step
     composition ``_settle_pass(_step_nosettle(st))`` is bit-identical to
     the round-2 fused step (pinned by the det-mode trajectory tests); the
-    PRNG production kernel instead runs U betting steps per settle pass,
+    generator-mode runners instead run U betting steps per settle pass,
     removing the settle tensors — 74% of the fused step's time
     (PERF.md round-3 ablation) — from U-1 of every U steps.
 
     ``raw_action``: [8,128] pre-clamp policy action. Mirrors
     engine/step.py:apply_action + _advance_streets under the configured
-    rules; every jnp op is Mosaic-lowerable.
+    rules.
     """
     reference = rules == "reference"
     n_lvl = st["lvl"].shape[0]
@@ -581,7 +570,7 @@ def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
         button_shift = 1
     if reset_stacks:
         # Independent-hand evaluation mode: every hand starts from full
-        # stacks (the kernel analog of single-hand duplicate evaluation;
+        # stacks (the packed analog of single-hand duplicate evaluation;
         # seats still rotate through positions via the button).
         rot = jnp.full_like(rot, ss)
     seats = _iota(P)
@@ -690,18 +679,17 @@ def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
 def _engine_step(st, raw_action, new_cards, P, sb, bb,
                  rules="reference", ss=100, reset_stacks=False):
     """One fused ``step_table``: the betting step composed with an
-    immediate settle pass — bit-identical to the round-2 monolithic step
-    (the det-mode kernel and the net-eval kernel run this form; the PRNG
-    production kernel defers the settle pass, see ``_make_kernel``)."""
+    immediate settle pass (the det-mode runners use this form; the PRNG
+    runners defer the settle pass, see ``_run_steps``)."""
     st = _step_nosettle(st, raw_action, P, sb, bb, rules)
     return _settle_pass(st, new_cards, P, sb, bb, rules, ss, reset_stacks)
 
 
-def _policy_prng(st, P):
-    """random_policy (rollout/policy.py) on hardware PRNG bits."""
-    u = pltpu.prng_random_bits(TILE).astype(jnp.uint32)
-    amt_bits = pltpu.prng_random_bits(TILE).astype(jnp.uint32)
-    amt = (amt_bits % jnp.uint32(MAX_RAISE)).astype(I32) + 1
+def _policy_random(st, P, key, step):
+    """random_policy (rollout/policy.py) on policy words 0-1 of ``step``."""
+    base = step * STEP_DRAWS
+    u = bits(key, base)
+    amt = uniform_int(key, base + 1, MAX_RAISE) + 1
 
     head, _, _ = _head_info(st, P)
     owes = (_street_total(st["lvl"]) - _pick(st["contrib"], head)) > 0
@@ -713,128 +701,101 @@ def _policy_prng(st, P):
                      jnp.where(is_raise, amt, I32(0)))
 
 
-def _make_kernel(P, n_steps, layout, F, mode, sb, bb, hmax=0,
-                 rules="reference"):
+def _run_steps(st, n_steps, key, act, P, sb, bb, rules, ss=100,
+               reset_stacks=False):
+    """``n_steps`` PRNG-mode steps of one block: ``act(st, step)`` gives
+    the raw actions; deals come from the counter generator. With DEFER
+    dividing ``n_steps``, DEFER betting steps run per settle pass;
+    otherwise every step settles."""
     n_cards = 2 * P + 5
 
-    if mode == "prng":
-        defer = DEFER if (DEFER > 1 and n_steps % DEFER == 0) else 1
-        unroll = defer if defer > 1 else (
-            UNROLL if n_steps % UNROLL == 0 else 1)
+    def betting(s, st):
+        return _step_nosettle(st, act(st, s), P, sb, bb, rules)
 
-        def kernel(seed_ref, state_ref, out_ref):
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-            st = _unpack(state_ref[0], layout)
+    def settle(st, s):
+        return _settle_pass(st, _sample_cards(key, s, n_cards), P, sb, bb,
+                            rules, ss, reset_stacks=reset_stacks)
 
-            def body(_, st):
-                for _k in range(unroll):
-                    raw = _policy_prng(st, P)
-                    if defer > 1:
-                        st = _step_nosettle(st, raw, P, sb, bb, rules)
-                    else:
-                        cards = _sample_cards(TILE, n_cards)
-                        st = _engine_step(st, raw, cards, P, sb, bb, rules)
-                if defer > 1:
-                    # One settle pass per iteration: every table that
-                    # ended a hand in the last `defer` slots settles,
-                    # rotates, and redeals here.
-                    cards = _sample_cards(TILE, n_cards)
-                    st = _settle_pass(st, cards, P, sb, bb, rules)
-                return st
+    if n_steps % DEFER:
+        return jax.lax.fori_loop(
+            0, n_steps, lambda s, st: settle(betting(s, st), s), st)
 
-            # STATIC trip count: a runtime bound (read from SMEM) was
-            # measured 5x slower (34.7 vs 7.0 ns/table-step) — the dynamic
-            # while-loop defeats Mosaic's loop optimization. One compile
-            # per distinct launch length is the better trade.
-            st = jax.lax.fori_loop(0, n_steps // unroll, body, st)
-            out_ref[0] = _pack(st, layout, F)
-        return kernel
+    def deferred(i, st):
+        s0 = i * DEFER
+        st = jax.lax.fori_loop(0, DEFER, lambda j, st: betting(s0 + j, st),
+                               st, unroll=UNROLL)
+        return settle(st, s0 + DEFER - 1)
 
-    def kernel(seed_ref, state_ref, actions_ref, cards_ref, out_ref):
-        del seed_ref
-        st = _unpack(state_ref[0], layout)
-
-        def body(i, st):
-            raw = actions_ref[0, i]
-            # hand 0 was dealt at init; hand h reads stash row h,
-            # clamped to the last row like the XLA pipeline's
-            # table_decks[min(hand_idx, hmax-1)] (an exhausted stash
-            # re-deals the final deck instead of zero-filling).
-            hand_ptr = jnp.minimum(st["hand_ct"] + 1, hmax - 1)
-            stash = cards_ref[0]  # [hmax, n_cards, 8, 128]
-            sel = (jax.lax.broadcasted_iota(I32, (hmax, 1, 1, 1), 0)
-                   == hand_ptr[None, None])
-            cards = jnp.sum(jnp.where(sel, stash, 0), axis=0)
-            return _engine_step(st, raw, cards, P, sb, bb, rules)
-
-        st = jax.lax.fori_loop(0, n_steps, body, st)
-        out_ref[0] = _pack(st, layout, F)
-    return kernel
+    return jax.lax.fori_loop(0, n_steps // DEFER, deferred, st)
 
 
-def _specs(F, n_steps, hmax, P, mode):
-    state_spec = pl.BlockSpec((1, F) + TILE, lambda i: (i, 0, 0, 0))
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    if mode == "prng":
-        return [smem, state_spec], state_spec
-    actions_spec = pl.BlockSpec((1, n_steps) + TILE, lambda i: (i, 0, 0, 0))
-    cards_spec = pl.BlockSpec((1, hmax, 2 * P + 5) + TILE,
-                              lambda i: (i, 0, 0, 0, 0))
-    return [smem, state_spec, actions_spec, cards_spec], state_spec
+def _stash_cards(stash, st, hmax):
+    """Deal of the next hand from an injected [hmax, 2P+5, 8, 128] stash:
+    hand 0 was dealt at init; hand h reads stash row h, clamped to the
+    last row like the XLA pipeline's table_decks[min(hand_idx, hmax-1)]
+    (an exhausted stash re-deals the final deck instead of zero-filling)."""
+    hand_ptr = jnp.minimum(st["hand_ct"] + 1, hmax - 1)
+    sel = (jax.lax.broadcasted_iota(I32, (hmax, 1, 1, 1), 0)
+           == hand_ptr[None, None])
+    return jnp.sum(jnp.where(sel, stash, 0), axis=0)
 
 
-@partial(jax.jit, static_argnames=("P", "n_steps", "sb", "bb", "rules",
-                                   "interpret"))
+def _launch_seed(seed: int, done: int) -> int:
+    """Seed of the launch that starts after ``done`` steps of a run."""
+    return (seed + done * 7919) & 0x7FFFFFFF
+
+
+def _block_keys(seed, n_blocks, block0=0):
+    """[n_blocks, 8, 128] generator keys of the tables of blocks
+    ``block0 .. block0 + n_blocks - 1`` (global table index = block *
+    TABLES_PER_BLOCK + row-major lane)."""
+    lane = (jax.lax.broadcasted_iota(I32, (n_blocks,) + TILE, 0)
+            * TABLES_PER_BLOCK
+            + jax.lax.broadcasted_iota(I32, (n_blocks,) + TILE, 1) * TILE[1]
+            + jax.lax.broadcasted_iota(I32, (n_blocks,) + TILE, 2))
+    return stream_keys(seed, block0 * TABLES_PER_BLOCK + lane)
+
+
+@partial(jax.jit, static_argnames=("P", "n_steps", "sb", "bb", "rules"))
 def run_perpetual_prng(seed, state, P: int, n_steps: int, sb: int, bb: int,
-                       rules: str = "reference", interpret: bool = False):
-    """Run ``n_steps`` of the whole-step kernel with in-kernel PRNG.
+                       rules: str = "reference", block0=0):
+    """Run ``n_steps`` random-policy steps on every block.
 
-    ``n_steps`` is STATIC: a runtime trip count was measured 5x slower
-    (see _make_kernel). ``state``: packed [n_blocks, F, 8, 128] i32."""
+    ``state``: packed [n_blocks, F, 8, 128] i32; ``block0``: global index
+    of its first block (a shard's offset), so a sharded run draws exactly
+    what one device draws for the same tables. ``n_steps`` is static: it
+    fixes the deferred-settlement schedule."""
     layout, F = _field_layout(P, rules)
-    n_blocks = state.shape[0]
-    in_specs, out_spec = _specs(F, 0, 0, P, "prng")
-    ctrl = jnp.asarray(seed, I32).reshape(1)
-    return pl.pallas_call(
-        _make_kernel(P, n_steps, layout, F, "prng", sb, bb, rules=rules),
-        grid=(n_blocks,),
-        in_specs=in_specs,
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct(state.shape, I32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=interpret,
-    )(ctrl, state)
+
+    def block(key, blk):
+        st = _unpack(blk, layout)
+        st = _run_steps(st, n_steps, key,
+                        lambda st, s: _policy_random(st, P, key, s),
+                        P, sb, bb, rules)
+        return _pack(st, layout, F)
+
+    return jax.vmap(block)(_block_keys(seed, state.shape[0], block0), state)
 
 
+@partial(jax.jit, static_argnames=("P", "n_steps", "sb", "bb", "rules"))
 def run_perpetual_det(state, actions, cards, P: int, n_steps: int,
-                      sb: int, bb: int, rules: str = "reference",
-                      interpret: bool = False, jit: bool = False):
+                      sb: int, bb: int, rules: str = "reference"):
     """Deterministic mode: injected raw actions [n_blocks, n_steps, 8, 128]
     and per-hand deals [n_blocks, hmax, 2P+5, 8, 128] (hand 0 must already
-    be dealt into ``state``; hand h>0 reads stash row h).
-
-    Interpret mode runs unjitted by default (eager dispatch is seconds;
-    jitting the inlined interpreter program is minutes of XLA:CPU
-    compile)."""
+    be dealt into ``state``; hand h>0 reads stash row h). Settles every
+    step."""
     layout, F = _field_layout(P, rules)
-    n_blocks = state.shape[0]
     hmax = cards.shape[1]
-    in_specs, out_spec = _specs(F, n_steps, hmax, P, "det")
-    call = pl.pallas_call(
-        _make_kernel(P, n_steps, layout, F, "det", sb, bb, hmax,
-                     rules=rules),
-        grid=(n_blocks,),
-        in_specs=in_specs,
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct(state.shape, I32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=interpret,
-    )
-    if jit:
-        call = jax.jit(call)
-    return call(jnp.zeros((1,), I32), state, actions, cards)
+
+    def block(blk, acts, stash):
+        def body(i, st):
+            return _engine_step(st, acts[i], _stash_cards(stash, st, hmax),
+                                P, sb, bb, rules)
+
+        st = jax.lax.fori_loop(0, n_steps, body, _unpack(blk, layout))
+        return _pack(st, layout, F)
+
+    return jax.vmap(block)(state, actions, cards)
 
 
 # ---------------------------------------------------------------------------
@@ -914,6 +875,25 @@ def pack_state(cfg, first_cards):
     return jnp.asarray(state)
 
 
+def pack_streams(actions=None, cards=None):
+    """Injected streams in block layout for the deterministic mode:
+    raw actions [n_steps, T] -> [n_blocks, n_steps, 8, 128]; per-hand
+    deals [T, hmax, 2P+5] -> [n_blocks, hmax, 2P+5, 8, 128]."""
+    out = []
+    if actions is not None:
+        a = jnp.asarray(actions, I32)
+        n_steps, T = a.shape
+        out.append(a.reshape(n_steps, T // TABLES_PER_BLOCK, *TILE)
+                   .transpose(1, 0, 2, 3))
+    if cards is not None:
+        c = jnp.asarray(cards, I32)
+        T, hmax, k = c.shape
+        out.append(c.transpose(1, 2, 0)
+                   .reshape(hmax, k, T // TABLES_PER_BLOCK, *TILE)
+                   .transpose(2, 0, 1, 3, 4))
+    return out[0] if len(out) == 1 else tuple(out)
+
+
 def unpack_field(state, cfg, name, i=0):
     """[n_blocks, F, 8, 128] -> flat [n_tables] view of one field row."""
     layout, _ = _field_layout(cfg.num_seats, cfg.rules)
@@ -923,19 +903,18 @@ def unpack_field(state, cfg, name, i=0):
 
 
 # ---------------------------------------------------------------------------
-# Production wrapper: perpetual self-play on the whole-step kernel
+# Production wrapper: perpetual self-play on the packed engine
 # ---------------------------------------------------------------------------
 
 def selfplay_perpetual_kernel(seed: int, cfg, n_tables: int, n_steps: int,
-                              steps_per_launch: int = 512,
-                              interpret: bool = False):
-    """Random-policy perpetual self-play entirely inside the Pallas kernel.
+                              steps_per_launch: int = 512):
+    """Random-policy perpetual self-play on the packed-block engine.
 
-    The TPU-native replacement for ``rollout.selfplay.play_hands_perpetual``
-    under reference rules: identical semantics (pinned by the deterministic
-    mode's trajectory-equality tests), different (hardware) PRNG streams.
-    The first hand is dealt host-side with threefry; every subsequent deal
-    and policy draw happens on-chip.
+    The packed-block counterpart of ``rollout.selfplay.play_hands_perpetual``:
+    identical semantics (pinned by the deterministic mode's
+    trajectory-equality tests), different (counter-based) random streams.
+    The first hand is dealt with threefry; every subsequent deal and policy
+    draw comes from the counter generator on the device.
 
     Returns ``(final_packed_state, hands_completed, overflowed_tables)``.
     """
@@ -957,9 +936,9 @@ def selfplay_perpetual_kernel(seed: int, cfg, n_tables: int, n_steps: int,
     done = 0
     while done < n_steps:
         chunk = min(steps_per_launch, n_steps - done)
-        state = run_perpetual_prng((seed + done * 7919) & 0x7FFFFFFF, state, P, chunk,
+        state = run_perpetual_prng(_launch_seed(seed, done), state, P, chunk,
                                    cfg.small_blind, cfg.big_blind,
-                                   rules=cfg.rules, interpret=interpret)
+                                   rules=cfg.rules)
         done += chunk
     hands = int(jnp.sum(unpack_field(state, cfg, "hand_ct")))
     ovf = int(jnp.sum(unpack_field(state, cfg, "overflow")))
@@ -970,7 +949,7 @@ def position_deltas(state, cfg):
     """Accumulated settled chip change per hand-order position across all
     completed hands (position 0 = each hand's small blind): (sums[P],
     hands). Mean bb/hand per position = sums / hands / big_blind — the
-    kernel-scale form of ``rollout.selfplay.position_winrates``."""
+    packed-engine form of ``rollout.selfplay.position_winrates``."""
     import numpy as np
 
     P = cfg.num_seats
@@ -984,7 +963,7 @@ def position_deltas(state, cfg):
 
 
 # ---------------------------------------------------------------------------
-# In-kernel policy network: seat-pinned trained-agent evaluation
+# Policy network on the packed engine: seat-pinned agent evaluation
 # ---------------------------------------------------------------------------
 
 def _masked_suit_masks(cards, valids):
@@ -1028,8 +1007,8 @@ def _features(st, head, P, bb):
     true_ = jnp.ones_like(stage) != 0
     valids = [true_, true_] + [i < n_comm for i in range(5)]
     key = eval_masks_impl(*_masked_suit_masks(cards, valids))
-    # route through int32: Mosaic has no uint32 -> f32 cast (both payloads
-    # are < 2^12 after the shifts, so int32 is exact)
+    # both payloads are < 2^12 after the shifts, so the int32 route
+    # to float is exact
     key = key.astype(jnp.uint32)
     category = jnp.right_shift(key, hv.CAT_SHIFT).astype(I32) \
         .astype(F32) / 8.0
@@ -1075,16 +1054,14 @@ def _features(st, head, P, bb):
     ]
 
 
-def _gumbel_pick(logits):
-    """Categorical sample over the leading axis via Gumbel argmax
-    (module-level so ablation scripts can stub it).
-
-    >>8 keeps 24 bits: fits int32, whose f32 cast Mosaic supports
-    (uint32 -> f32 does not lower)."""
+def _gumbel_pick(logits, key, step):
+    """Categorical sample over the leading axis via Gumbel argmax on
+    Gumbel words 2.. of ``step`` (24 bits of each word)."""
     F32 = jnp.float32
     n = logits.shape[0]
-    u = jnp.right_shift(pltpu.prng_random_bits((n,) + TILE)
-                        .astype(jnp.uint32), 8).astype(I32).astype(F32) \
+    ctr = step * STEP_DRAWS + 2 + _iota(n)
+    assert 2 + n <= DEAL_DRAW, n
+    u = jnp.right_shift(bits(key[None], ctr), 8).astype(I32).astype(F32) \
         * (2.0 ** -24)
     g = -jnp.log(-jnp.log(jnp.maximum(u, 1e-12)))
     z = logits + g
@@ -1095,54 +1072,49 @@ def _gumbel_pick(logits):
 def _argmax_pick(logits):
     """Deterministic pick over the leading axis: first index attaining
     the max — the same tie-break as ``jnp.argmax`` and the det twin of
-    ``_gumbel_pick`` (no PRNG, so det-mode net kernels interpret on
-    CPU meshes)."""
+    ``_gumbel_pick``."""
     n = logits.shape[0]
     m = jnp.max(logits, axis=0)
     return jnp.min(jnp.where(logits == m[None], _iota(n), n), axis=0)
 
 
-def _mlp_logits(fl, w_refs):
-    """[n_feats, 8, 128] features -> [4, 8, 128] logits via the MLP."""
-    w1t, b1, w2t, b2, w3t, b3 = w_refs
-    F32 = jnp.float32
+def _mlp_logits(fl, weights):
+    """[n_feats, 8, 128] features -> [4, 8, 128] logits via the MLP, in
+    the precision of ``models.policy_net.policy_logits``."""
+    w1t, b1, w2t, b2, w3t, b3 = weights
 
     def dense(wt, b, x):
-        # [out, in] x [in, 8, 128] -> [out, 8, 128]: a direct contraction
-        # keeps the block tile layout (reshaping the tile to a [., 1024]
-        # matmul minor dim forced per-step relayouts).
-        y = jax.lax.dot_general(wt[:], x, (((1,), (0,)), ((), ())),
-                                preferred_element_type=F32)
-        return y + b[:][..., None]
+        # [out, in] x [in, 8, 128] -> [out, 8, 128]
+        y = jnp.einsum("oi,i...->o...", wt, x, precision=MATMUL_PRECISION,
+                       preferred_element_type=jnp.float32)
+        return y + b[..., None]
 
     h = jax.nn.relu(dense(w1t, b1, fl))
     h = jax.nn.relu(dense(w2t, b2, h))
     return dense(w3t, b3, h)  # [4, 8, 128]
 
 
-def _net_action(st, head, P, sb, bb, w_refs, banks=None,
-                seat_to_bank=None, det: bool = False):
-    """models/policy_net.py:net_policy on block arrays: MLP logits via
-    MXU matmuls (tables flattened to the matmul minor dim), categorical
-    sampling via Gumbel argmax, menu mapping fold/call/2bb/pot.
+def _net_action(st, head, P, bb, weights, banks=None, seat_to_bank=None,
+                key=None, step=None):
+    """models/policy_net.py:net_policy on block arrays: MLP logits,
+    categorical sampling via Gumbel argmax (argmax when ``key`` is None —
+    the deterministic mode), menu mapping fold/call/2bb/pot.
 
     With ``banks=B`` and a static ``seat_to_bank`` map, the weights are
     B distinct nets flattened into ONE wide MLP (hidden [B*64],
     block-diagonal w2/w3 — see ``_stack_weights_league``): the SAME
-    three contractions as a single net (per-bank unrolling exploded
-    Mosaic compile time; B=6 wide blew VMEM — head-to-head needs only
-    B=2), then the acting table's [4] logit group is selected by
-    one-hot over its head seat's bank — different nets at different
-    seats of the same table (league/head-to-head evaluation)."""
-    del sb
+    three contractions as a single net, then the acting table's [4]
+    logit group is selected by one-hot over its head seat's bank —
+    different nets at different seats of the same table
+    (league/head-to-head evaluation)."""
     F32 = jnp.float32
     feats = _features(st, head, P, bb)
     fl = jnp.stack(feats, axis=0)  # [n_feats, 8, 128]
 
     if banks is None:
-        logits = _mlp_logits(fl, w_refs)
+        logits = _mlp_logits(fl, weights)
     else:
-        z = _mlp_logits(fl, w_refs).reshape(banks, 4, *TILE)
+        z = _mlp_logits(fl, weights).reshape(banks, 4, *TILE)
         head_seat = (st["button"] + head) % P
         bank = jnp.zeros_like(head_seat)
         for s in range(P):
@@ -1158,7 +1130,8 @@ def _net_action(st, head, P, sb, bb, w_refs, banks=None,
     # folding with nothing owed is masked (policy_net.py:80-81)
     logits = jnp.where(_iota(4) == 0,
                        logits + jnp.where(free, -1e9, 0.0)[None], logits)
-    idx = _argmax_pick(logits) if det else _gumbel_pick(logits)
+    idx = (_argmax_pick(logits) if key is None
+           else _gumbel_pick(logits, key, step))
 
     pot = total + jnp.sum(st["pot_amt"], axis=0)
     small = 2 * bb
@@ -1168,201 +1141,96 @@ def _net_action(st, head, P, sb, bb, w_refs, banks=None,
                                jnp.where(idx == 2, small, pot_raise)))
 
 
-def _make_net_kernel(P, n_steps, layout, F, sb, bb, ss, rules,
-                     net_seats: int, reset_stacks: bool,
-                     pop: bool = False, banks=None, seat_to_bank=None,
-                     mode: str = "prng", hmax: int = 0):
-    n_cards = 2 * P + 5
-    defer = DEFER if (DEFER > 1 and n_steps % DEFER == 0) else 1
+def _net_block_fn(P, n_steps, rules, sb, bb, ss, net_seats: int,
+                  reset_stacks: bool, banks=None, seat_to_bank=None):
+    """PRNG-mode net evaluation of one block: ``(key, block, weights) ->
+    block``. Seats whose bit is set in ``net_seats`` play the net, the
+    rest ``random_policy``."""
+    layout, F = _field_layout(P, rules)
 
-    if mode == "det":
-        # Deterministic net kernel: actions from the net via argmax (no
-        # Gumbel), per-hand deals injected from a stash (no PRNG at all),
-        # every seat plays the net — so the ES/league deployment shape
-        # (MLP contractions, bank selection, menu mapping, settle)
-        # executes under interpret mode on CPU meshes. Settles every
-        # step like the engine det kernel (run_perpetual_det).
-        assert net_seats == (1 << P) - 1, \
-            "det mode has no PRNG for non-net seats"
-
-        def kernel(seed_ref, state_ref, w1t, b1, w2t, b2, w3t, b3,
-                   cards_ref, out_ref):
-            del seed_ref
-            st = _unpack(state_ref[0], layout)
-            w_refs = (w1t, b1, w2t, b2, w3t, b3)
-
-            def body(i, st):
-                head, _, _ = _head_info(st, P)
-                raw = _net_action(st, head, P, sb, bb, w_refs,
-                                  banks=banks, seat_to_bank=seat_to_bank,
-                                  det=True)
-                # hand 0 was dealt at init; hand h reads stash row
-                # h, clamped to the last row like the XLA pipeline's
-                # table_decks[min(hand_idx, hmax-1)].
-                hand_ptr = jnp.minimum(st["hand_ct"] + 1, hmax - 1)
-                stash = cards_ref[0]  # [hmax, n_cards, 8, 128]
-                sel = (jax.lax.broadcasted_iota(I32, (hmax, 1, 1, 1), 0)
-                       == hand_ptr[None, None])
-                cards = jnp.sum(jnp.where(sel, stash, 0), axis=0)
-                return _engine_step(st, raw, cards, P, sb, bb, rules,
-                                    ss, reset_stacks=reset_stacks)
-
-            st = jax.lax.fori_loop(0, n_steps, body, st)
-            out_ref[0] = _pack(st, layout, F)
-        return kernel
-
-    def kernel(seed_ref, state_ref, w1t, b1, w2t, b2, w3t, b3, out_ref):
-        if pop:
-            # grid (candidates, blocks): the PRNG stream depends ONLY on
-            # the block index, so every candidate sees identical deals and
-            # identical random-seat draws — common random numbers across
-            # the whole ES generation in one launch.
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(1))
-            st = _unpack(state_ref[0, 0], layout)
-            w_refs = tuple(w[0] for w in (w1t, b1, w2t, b2, w3t, b3))
-        else:
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-            st = _unpack(state_ref[0], layout)
-            w_refs = (w1t, b1, w2t, b2, w3t, b3)
-
-        def raw_action(st):
-            rand = _policy_prng(st, P)
+    def block(key, blk, weights):
+        def act(st, s):
+            rand = _policy_random(st, P, key, s)
             head, _, _ = _head_info(st, P)
             head_seat = (st["button"] + head) % P
             use_net = (jnp.right_shift(
                 jnp.full_like(head_seat, net_seats), head_seat) & 1) != 0
-            net = _net_action(st, head, P, sb, bb, w_refs, banks=banks,
-                              seat_to_bank=seat_to_bank)
+            net = _net_action(st, head, P, bb, weights, banks=banks,
+                              seat_to_bank=seat_to_bank, key=key, step=s)
             return jnp.where(use_net, net, rand)
 
-        def body(_, st):
-            for _k in range(defer):
-                raw = raw_action(st)
-                if defer > 1:
-                    st = _step_nosettle(st, raw, P, sb, bb, rules)
-                else:
-                    cards = _sample_cards(TILE, n_cards)
-                    st = _engine_step(st, raw, cards, P, sb, bb, rules,
-                                      ss, reset_stacks=reset_stacks)
-            if defer > 1:
-                cards = _sample_cards(TILE, n_cards)
-                st = _settle_pass(st, cards, P, sb, bb, rules, ss,
-                                  reset_stacks=reset_stacks)
-            return st
+        st = _run_steps(_unpack(blk, layout), n_steps, key, act, P, sb, bb,
+                        rules, ss, reset_stacks=reset_stacks)
+        return _pack(st, layout, F)
 
-        st = jax.lax.fori_loop(0, n_steps // defer, body, st)
-        if pop:
-            out_ref[0, 0] = _pack(st, layout, F)
-        else:
-            out_ref[0] = _pack(st, layout, F)
-    return kernel
+    return block
 
 
 @partial(jax.jit, static_argnames=("P", "n_steps", "sb", "bb", "ss",
-                                   "rules", "net_seats", "reset_stacks",
-                                   "interpret"))
+                                   "rules", "net_seats", "reset_stacks"))
 def run_net_eval(seed, state, weights, P: int, n_steps: int, sb: int,
                  bb: int, ss: int, rules: str, net_seats: int,
-                 reset_stacks: bool = True, interpret: bool = False):
-    layout, F = _field_layout(P, rules)
-    n_blocks = state.shape[0]
-    state_spec = pl.BlockSpec((1, F) + TILE, lambda i: (i, 0, 0, 0))
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _make_net_kernel(P, n_steps, layout, F, sb, bb, ss, rules,
-                         net_seats, reset_stacks),
-        grid=(n_blocks,),
-        in_specs=[smem, state_spec] + [vmem] * 6,
-        out_specs=state_spec,
-        out_shape=jax.ShapeDtypeStruct(state.shape, I32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=interpret,
-    )(jnp.asarray(seed, I32).reshape(1), state, *weights)
+                 reset_stacks: bool = True):
+    block = _net_block_fn(P, n_steps, rules, sb, bb, ss, net_seats,
+                          reset_stacks)
+    return jax.vmap(block, in_axes=(0, 0, None))(
+        _block_keys(seed, state.shape[0]), state, weights)
 
 
 @partial(jax.jit, static_argnames=("P", "n_steps", "sb", "bb", "ss",
                                    "rules", "net_seats", "n_banks",
-                                   "seat_to_bank", "reset_stacks",
-                                   "interpret"))
+                                   "seat_to_bank", "reset_stacks"))
 def run_net_league(seed, state, weights, P: int, n_steps: int, sb: int,
                    bb: int, ss: int, rules: str, net_seats: int,
                    n_banks: int, seat_to_bank,
-                   reset_stacks: bool = True, interpret: bool = False):
+                   reset_stacks: bool = True):
     """League evaluation: ``n_banks`` distinct nets flattened into wide
     block-diagonal weights (``_stack_weights_league``); seat k plays
     bank ``seat_to_bank[k]`` (static tuple). Seats not in ``net_seats``
     still play the random policy."""
-    layout, F = _field_layout(P, rules)
-    n_blocks = state.shape[0]
-    state_spec = pl.BlockSpec((1, F) + TILE, lambda i: (i, 0, 0, 0))
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _make_net_kernel(P, n_steps, layout, F, sb, bb, ss, rules,
-                         net_seats, reset_stacks, banks=n_banks,
-                         seat_to_bank=seat_to_bank),
-        grid=(n_blocks,),
-        in_specs=[smem, state_spec] + [vmem] * 6,
-        out_specs=state_spec,
-        out_shape=jax.ShapeDtypeStruct(state.shape, I32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=interpret,
-    )(jnp.asarray(seed, I32).reshape(1), state, *weights)
+    block = _net_block_fn(P, n_steps, rules, sb, bb, ss, net_seats,
+                          reset_stacks, banks=n_banks,
+                          seat_to_bank=seat_to_bank)
+    return jax.vmap(block, in_axes=(0, 0, None))(
+        _block_keys(seed, state.shape[0]), state, weights)
 
 
+@partial(jax.jit, static_argnames=("P", "n_steps", "sb", "bb", "ss",
+                                   "rules", "n_banks", "seat_to_bank",
+                                   "reset_stacks"))
 def run_net_det(state, cards, weights, P: int, n_steps: int, sb: int,
                 bb: int, ss: int, rules: str, n_banks=None,
-                seat_to_bank=None, reset_stacks: bool = False,
-                interpret: bool = False, jit: bool = False):
-    """Deterministic net/league kernel: argmax action selection and
+                seat_to_bank=None, reset_stacks: bool = False):
+    """Deterministic net/league mode: argmax action selection and
     injected per-hand deals (``cards`` [n_blocks, hmax, 2P+5, 8, 128];
-    hand 0 must already be dealt into ``state``) — zero PRNG, so the ES
-    deployment kernel runs under interpret mode on CPU meshes
-    (dryrun_multichip item 7) and is trajectory-pinned against the XLA
-    net pipeline in tests/test_pallas_engine.py. Every seat plays the
-    net; with ``n_banks``/``seat_to_bank`` the weights are a wide banked
-    MLP (league shape, ``_stack_weights_league``).
-
-    Interpret mode runs unjitted by default, like ``run_perpetual_det``
-    (jitting the inlined interpreter program is minutes of XLA:CPU
-    compile)."""
+    hand 0 must already be dealt into ``state``), settling every step.
+    Every seat plays the net; with ``n_banks``/``seat_to_bank`` the
+    weights are a wide banked MLP (league shape,
+    ``_stack_weights_league``). Trajectory-pinned against the XLA net
+    pipeline in tests/test_pallas_engine.py."""
     layout, F = _field_layout(P, rules)
-    n_blocks = state.shape[0]
     hmax = cards.shape[1]
-    state_spec = pl.BlockSpec((1, F) + TILE, lambda i: (i, 0, 0, 0))
-    cards_spec = pl.BlockSpec((1, hmax, 2 * P + 5) + TILE,
-                              lambda i: (i, 0, 0, 0, 0))
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-    call = pl.pallas_call(
-        _make_net_kernel(P, n_steps, layout, F, sb, bb, ss, rules,
-                         (1 << P) - 1, reset_stacks, banks=n_banks,
-                         seat_to_bank=seat_to_bank, mode="det",
-                         hmax=hmax),
-        grid=(n_blocks,),
-        in_specs=[smem, state_spec] + [vmem] * 6 + [cards_spec],
-        out_specs=state_spec,
-        out_shape=jax.ShapeDtypeStruct(state.shape, I32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=interpret,
-    )
-    if jit:
-        call = jax.jit(call)
-    return call(jnp.zeros((1,), I32), state, *weights, cards)
+
+    def block(blk, stash):
+        def body(i, st):
+            head, _, _ = _head_info(st, P)
+            raw = _net_action(st, head, P, bb, weights, banks=n_banks,
+                              seat_to_bank=seat_to_bank)
+            return _engine_step(st, raw, _stash_cards(stash, st, hmax), P,
+                                sb, bb, rules, ss, reset_stacks=reset_stacks)
+
+        st = jax.lax.fori_loop(0, n_steps, body, _unpack(blk, layout))
+        return _pack(st, layout, F)
+
+    return jax.vmap(block)(state, cards)
 
 
 def _stack_weights_league(params_banks):
     """B distinct MLPs -> ONE wide MLP: hidden dims concatenate to
     [B*64]; w2/w3 become block-diagonal so the banks never mix; the
-    output [B*4] holds each bank's logit group (selected in-kernel by
-    the head seat's bank). Same op count as a single net — Mosaic
-    compiles it like the plain net kernel instead of B unrolled MLPs.
-    Keep B small: VMEM scales with the wide hidden (B=6 did not fit
-    next to the engine state)."""
+    output [B*4] holds each bank's logit group (selected per table by
+    the head seat's bank). Same three contractions as a single net
+    instead of B unrolled MLPs."""
     import numpy as np
 
     params_per_seat = params_banks
@@ -1417,7 +1285,7 @@ def selfplay_net_league(seed: int, cfg, params_banks, seat_to_bank,
     done = 0
     while done < n_steps:
         chunk = min(steps_per_launch, n_steps - done)
-        state = run_net_league((seed + done * 7919) & 0x7FFFFFFF, state, weights, P,
+        state = run_net_league(_launch_seed(seed, done), state, weights, P,
                                chunk, cfg.small_blind, cfg.big_blind,
                                cfg.starting_stack, cfg.rules, net_seats,
                                len(params_banks), seat_to_bank)
@@ -1438,47 +1306,27 @@ def selfplay_net_league(seed: int, cfg, params_banks, seat_to_bank,
 
 @partial(jax.jit, static_argnames=("P", "n_steps", "sb", "bb", "ss",
                                    "rules", "net_seats", "n_banks",
-                                   "seat_to_bank", "reset_stacks",
-                                   "interpret"))
+                                   "seat_to_bank", "reset_stacks"))
 def run_net_eval_pop(seed, state, weights, P: int, n_steps: int, sb: int,
                      bb: int, ss: int, rules: str, net_seats: int,
                      n_banks=None, seat_to_bank=None,
-                     reset_stacks: bool = True, interpret: bool = False):
-    """Population-batched net evaluation: one launch runs C candidates.
+                     reset_stacks: bool = True):
+    """Population-batched net evaluation: one call runs C candidates.
 
     ``state``: [C, n_blocks, F, 8, 128]; each ``weights`` leaf carries a
-    leading candidate axis [C, ...]. The grid is (C, n_blocks) and the
-    PRNG stream is a function of the BLOCK index only, so all candidates
-    play the same deals/random-seat draws (common random numbers) — the
-    single-launch form of the ES generation that previously took 2*pop
-    separate launches (each ~95% launch overhead, PERF.md).
+    leading candidate axis [C, ...]. The generator stream is a function
+    of the TABLE only, so all candidates play the same deals/random-seat
+    draws (common random numbers).
 
     With ``n_banks``/``seat_to_bank``, each candidate's weights are a
     wide banked MLP (``_stack_weights_league``) — league fitness: the
     candidate plays its mapped seats against fixed opponent bank(s)."""
-    layout, F = _field_layout(P, rules)
-    C, n_blocks = state.shape[0], state.shape[1]
-    state_spec = pl.BlockSpec((1, 1, F) + TILE,
-                              lambda c, i: (c, i, 0, 0, 0))
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-
-    def wspec(leaf):
-        zeros = (0,) * (leaf.ndim - 1)
-        return pl.BlockSpec((1,) + leaf.shape[1:],
-                            lambda c, i, _z=zeros: (c,) + _z)
-
-    return pl.pallas_call(
-        _make_net_kernel(P, n_steps, layout, F, sb, bb, ss, rules,
-                         net_seats, reset_stacks, pop=True,
-                         banks=n_banks, seat_to_bank=seat_to_bank),
-        grid=(C, n_blocks),
-        in_specs=[smem, state_spec] + [wspec(w) for w in weights],
-        out_specs=state_spec,
-        out_shape=jax.ShapeDtypeStruct(state.shape, I32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")),
-        interpret=interpret,
-    )(jnp.asarray(seed, I32).reshape(1), state, *weights)
+    block = _net_block_fn(P, n_steps, rules, sb, bb, ss, net_seats,
+                          reset_stacks, banks=n_banks,
+                          seat_to_bank=seat_to_bank)
+    keys = _block_keys(seed, state.shape[1])
+    blocks = jax.vmap(block, in_axes=(0, 0, None))
+    return jax.vmap(blocks, in_axes=(None, 0, 0))(keys, state, weights)
 
 
 def initial_packed_state(seed: int, cfg, n_tables: int):
@@ -1499,11 +1347,11 @@ def initial_packed_state(seed: int, cfg, n_tables: int):
 def selfplay_net_eval_kernel(seed: int, cfg, params, net_seats: int,
                              n_tables: int, n_steps: int,
                              steps_per_launch: int = 256, state0=None):
-    """Seat-pinned policy-net evaluation at kernel speed: seats whose bit
+    """Seat-pinned policy-net evaluation on the packed engine: seats whose bit
     is set in ``net_seats`` play the trained net (models/policy_net.py),
     the rest play ``random_policy``; every hand starts from full stacks
     (independent-hand evaluation; the button rotates seats through
-    positions) and per-SEAT settled deltas accumulate in-kernel.
+    positions) and per-SEAT settled deltas accumulate on the device.
 
     Returns ``(bb_per_hand[P], stderr[P], hands)`` — mean chips/hand per
     stable seat in big blinds, with a per-table-clustered standard error.
@@ -1518,18 +1366,12 @@ def selfplay_net_eval_kernel(seed: int, cfg, params, net_seats: int,
         state0 = initial_packed_state(seed, cfg, n_tables)
     state = state0
 
-    weights = (
-        jnp.asarray(params.w1.T, jnp.float32),
-        jnp.asarray(params.b1, jnp.float32).reshape(-1, 1),
-        jnp.asarray(params.w2.T, jnp.float32),
-        jnp.asarray(params.b2, jnp.float32).reshape(-1, 1),
-        jnp.asarray(params.w3.T, jnp.float32),
-        jnp.asarray(params.b3, jnp.float32).reshape(-1, 1),
-    )
+    weights = net_weights(params)
     done = 0
     while done < n_steps:
         chunk = min(steps_per_launch, n_steps - done)
-        state = run_net_eval((seed + done * 7919) & 0x7FFFFFFF, state, weights, P, chunk,
+        state = run_net_eval(_launch_seed(seed, done), state, weights, P,
+                             chunk,
                              cfg.small_blind, cfg.big_blind,
                              cfg.starting_stack, cfg.rules, net_seats)
         done += chunk
@@ -1547,29 +1389,30 @@ def selfplay_net_eval_kernel(seed: int, cfg, params, net_seats: int,
     return np.array(means), np.array(errs), int(hands)
 
 
+def net_weights(params):
+    """MLPParams -> the engine's weight leaves: [out, in] matrices and
+    [out, 1] biases (``_mlp_logits``)."""
+    return tuple(
+        jnp.asarray(w.T if w.ndim == 2 else w.reshape(-1, 1), jnp.float32)
+        for w in (params.w1, params.b1, params.w2, params.b2, params.w3,
+                  params.b3))
+
+
 def _stack_weights(params_list):
-    """[MLPParams] -> kernel weight leaves, each with a leading C axis."""
-    def lead(get):
-        return jnp.stack([get(p) for p in params_list])
-    return (
-        lead(lambda p: jnp.asarray(p.w1.T, jnp.float32)),
-        lead(lambda p: jnp.asarray(p.b1, jnp.float32).reshape(-1, 1)),
-        lead(lambda p: jnp.asarray(p.w2.T, jnp.float32)),
-        lead(lambda p: jnp.asarray(p.b2, jnp.float32).reshape(-1, 1)),
-        lead(lambda p: jnp.asarray(p.w3.T, jnp.float32)),
-        lead(lambda p: jnp.asarray(p.b3, jnp.float32).reshape(-1, 1)),
-    )
+    """[MLPParams] -> engine weight leaves, each with a leading C axis."""
+    per = [net_weights(p) for p in params_list]
+    return tuple(jnp.stack([w[i] for w in per]) for i in range(6))
 
 
 def selfplay_net_eval_pop(seed: int, cfg, params_list, net_seats: int,
                           n_tables: int, n_steps: int,
                           steps_per_launch: int = 256, state0=None):
-    """Evaluate a POPULATION of policies in one kernel launch per chunk.
+    """Evaluate a POPULATION of policies in one call per chunk.
 
     Same semantics as ``selfplay_net_eval_kernel`` run once per candidate
     with a shared seed (common random numbers), but the candidate axis is
-    a grid dimension, so the per-launch overhead (~0.7 s at ES shapes,
-    PERF.md) is paid once per generation instead of once per candidate.
+    batched, so the per-call overhead is paid once per generation instead
+    of once per candidate.
 
     Returns ``(bb_per_hand[C, P], stderr[C, P], hands[C])``.
     """
@@ -1586,7 +1429,7 @@ def selfplay_net_eval_pop(seed: int, cfg, params_list, net_seats: int,
     done = 0
     while done < n_steps:
         chunk = min(steps_per_launch, n_steps - done)
-        state = run_net_eval_pop((seed + done * 7919) & 0x7FFFFFFF, state, weights, P,
+        state = run_net_eval_pop(_launch_seed(seed, done), state, weights, P,
                                  chunk, cfg.small_blind, cfg.big_blind,
                                  cfg.starting_stack, cfg.rules, net_seats)
         done += chunk
@@ -1595,13 +1438,12 @@ def selfplay_net_eval_pop(seed: int, cfg, params_list, net_seats: int,
 
 
 def _pop_meters(state, cfg):
-    """Per-candidate meters from a pop-kernel final state.
+    """Per-candidate meters from a population run's final state.
 
     Slices just the meter rows on device: transferring the full final
     state to host is ~830 MB at training shapes; the hand counter plus
     P seat-delta rows is ~100x smaller, and the host math below stays
-    identical to selfplay_net_eval_kernel's (pinned by
-    scripts/check_pop_kernel.py's exact-equality check)."""
+    identical to selfplay_net_eval_kernel's."""
     import numpy as np
 
     P = cfg.num_seats
@@ -1633,7 +1475,7 @@ def selfplay_net_league_pop(seed: int, cfg, cand_list, opponent,
     """League fitness for a POPULATION: candidate c plays bank 0 at its
     mapped seats against a FIXED ``opponent`` net (bank 1) — one launch
     per chunk for all candidates, common random numbers across the
-    generation (block-indexed PRNG). Default map seats seat 0 -> the
+    generation (table-indexed generator). Default map seats seat 0 -> the
     candidate, seats 1..P-1 -> the opponent.
 
     Returns ``(bb_per_hand[C, P], stderr[C, P], hands[C])``.
@@ -1659,7 +1501,7 @@ def selfplay_net_league_pop(seed: int, cfg, cand_list, opponent,
     done = 0
     while done < n_steps:
         chunk = min(steps_per_launch, n_steps - done)
-        state = run_net_eval_pop((seed + done * 7919) & 0x7FFFFFFF, state, weights, P,
+        state = run_net_eval_pop(_launch_seed(seed, done), state, weights, P,
                                  chunk, cfg.small_blind, cfg.big_blind,
                                  cfg.starting_stack, cfg.rules,
                                  net_seats, n_banks=2,
@@ -1672,10 +1514,10 @@ def tournaments_to_completion(seed: int, cfg, n_tables: int,
                               steps_per_launch: int = 512,
                               max_steps: int = 1 << 17):
     """Run tournament-rules tables until EVERY table freezes (one player
-    holds all chips), relaunching the kernel as long as live tables
+    holds all chips), relaunching the engine as long as live tables
     remain — total placements, no silent 2-4% unfinished tail.
 
-    Frozen tables are idempotent no-ops inside the kernel (empty play
+    Frozen tables are idempotent no-ops inside the engine (empty play
     order), so relaunching costs only the shrinking set of live tables'
     progress; the host checks the frozen count between launches (one int
     per table). Returns ``(state, steps_used)``; raises if ``max_steps``
@@ -1697,7 +1539,7 @@ def tournaments_to_completion(seed: int, cfg, n_tables: int,
 
     done = 0
     while done < max_steps:
-        state = run_perpetual_prng((seed + done * 7919) & 0x7FFFFFFF, state, P,
+        state = run_perpetual_prng(_launch_seed(seed, done), state, P,
                                    steps_per_launch, cfg.small_blind,
                                    cfg.big_blind, rules=cfg.rules)
         done += steps_per_launch
@@ -1711,8 +1553,8 @@ def tournaments_to_completion(seed: int, cfg, n_tables: int,
 
 def tournament_results(state, cfg):
     """Kernel-scale tournament outcomes: per-seat finishing places
-    (1 = winner) from the in-kernel bust records + final stacks, the
-    kernel form of ``rollout.selfplay.tournament_placements``.
+    (1 = winner) from the engine's bust records + final stacks, the
+    packed form of ``rollout.selfplay.tournament_placements``.
 
     Unbusted seats outrank busted ones; later busts beat earlier; ties
     (same bust hand / same stack) share by stable order. Returns

@@ -1,28 +1,26 @@
-"""Fused Pallas TPU kernel: equity rollouts entirely on-chip.
+"""Fused equity rollouts as Pallas kernels on the Triton route (GPU).
 
-One kernel program = one tile of rollouts, start to finish in VMEM/registers:
+One program owns ``BLOCK`` rollout lanes and loops over its share of
+rollouts inside the program; every iteration of every lane runs, start to
+finish in registers:
 
-    hardware PRNG -> distinct 5-card board sample (ordered draws + bubble
+    counter-based draws -> distinct card sample (ordered draws + bubble
     insertion) -> rank-shift past the dead cards -> suit masks -> bitmask
-    hand evaluation for hero and villain -> win/tie compare -> scalar
-    accumulation into SMEM across the sequential grid.
+    hand evaluation (``eval_masks_cmp_impl``) -> win/tie compare -> per-lane
+    counters.
 
-No card array ever touches HBM — the kernel's only outputs are two int32
-counters. This is the TPU-native replacement for the reference's
-per-showdown combinatorial evaluation (``hand_evaluator.clj:162-172``),
-fused with sampling so the whole Monte Carlo rollout is one VPU program.
+No card array ever reaches device memory: each lane writes its counters
+once, and XLA sums them per program (``[n_programs]`` partials, int32-safe
+by construction of ``_plan``); the host adds the partials in int64, so a
+call may cover more than 2^31 rollouts.
 
-RNG note: per-program streams come from ``pltpu.prng_seed(seed + program
-id)``; bounded draws use one 32-bit hardware word per card and a modulo,
-whose bias at bound <= 50 is ~1.2e-8 per draw — five orders of magnitude
-below Monte Carlo noise at any practical rollout count (the XLA path uses
-unbiased ``jax.random`` draws; agreement is asserted on hardware in
-``scripts/validate_tpu.py``). Exactly-uniform alternatives were built and
-MEASURED on a v5e (scripts/bench_kernel_variants.py, PERF.md): vectorized
-rejection via ``while_loop`` costs 23% throughput and a fallback-word
-select 27%, so the documented epsilon bias is the deliberate trade. The
-hardware PRNG itself is cheap — two-draws-per-word extraction saved
-nothing (u32 divides cost more than fresh words).
+Random bits come from ``ops/counter_rng.py`` keyed by (seed, global lane,
+iteration * DRAWS + draw), so no stream state is carried anywhere; a
+sharded caller passes each device's first global lane (``lane0``) and
+every lane of the mesh draws its own stream. ``rollout.equity`` and
+``parallel.mesh`` route heads-up equity and the 169-hand sweep here on a
+GPU (measured faster than the XLA path there, ``PERF.md``); the tests run
+these kernels in interpret mode against the XLA rollouts.
 """
 
 from __future__ import annotations
@@ -31,61 +29,50 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from montecarlo_tpu.ops.evaluator import eval_masks_cmp_impl
+from montecarlo_tpu.ops.counter_rng import stream_keys, uniform_int
+from montecarlo_tpu.ops.evaluator import eval_masks_cmp_impl, suit_masks_from_cards
 
 I32 = jnp.int32
 
-# Rollouts per kernel program: 128 sublanes x 128 lanes (swept on v5e:
-# (128,128) 4.53 G/s vs (64,128) 3.99 — bigger tiles amortize the
-# per-program prng_seed + counter update; (256,128) regresses).
-TILE = (128, 128)
-TILE_N = TILE[0] * TILE[1]
-
-# int32 win/tie counters: max sequential programs per launch before the
-# worst-case accumulation (every rollout a win) could wrap.
-MAX_PROGRAMS_PER_LAUNCH = (2**31 - 1) // TILE_N
+BLOCK = 256        # rollout lanes per program (a power of two for Triton)
+NUM_WARPS = 4
+DRAWS = 8          # counter words reserved per lane-iteration (<= 7 used)
+NO_CARD = 64       # dead-list padding: no live slot ever reaches it
+DEAD_SLOTS = 8     # padded dead-card list (<= 4 hole + 4 board; sweep: 2)
+TARGET_PROGRAMS = 4096  # enough programs in flight to fill every SM
 
 
-def _uniform_draws(shape, bounds):
-    """Draws ``d_i ~ U[0, bounds_i)``: one hardware word + modulo each.
+def _plan(n_rollouts: int, scale: int, n_programs_max: int = TARGET_PROGRAMS):
+    """(n_programs, n_iter) covering ``n_rollouts`` lanes-iterations, with
+    every per-program partial (<= scale * BLOCK * n_iter) inside int32."""
+    max_iter = (2**31 - 1) // (scale * BLOCK)
+    lanes_needed = -(-n_rollouts // BLOCK)
+    n_programs = max(1, min(n_programs_max, lanes_needed))
+    n_iter = -(-lanes_needed // n_programs)
+    if n_iter > max_iter:
+        n_iter = max_iter
+        n_programs = -(-lanes_needed // n_iter)
+    return n_programs, n_iter
 
-    Per-draw bias is ``bound / 2^32`` (~1.2e-8) — see the module docstring
-    for the measured cost of the exact alternatives this replaces.
-    """
-    return [
-        (pltpu.prng_random_bits(shape).astype(jnp.uint32)
-         % jnp.uint32(b)).astype(I32)
-        for b in bounds
-    ]
 
-
-def _sample_cards(dead, shape, k):
-    """Sample k distinct live cards as tile-shaped card-id arrays.
-
-    ``dead`` is a list of ascending scalar card ids excluded from the deck.
-    All tile-shaped elementwise ops: draws via the hardware PRNG,
-    distinctness via ordered draws + bubble insertion, slot->card via
-    rank-shifts past the dead cards.
-    """
-    n_live = 52 - len(dead)
-    draws = _uniform_draws(shape, [n_live - t for t in range(k)])
-    sorted_chosen = []
-    cards = []
+def _sample_cards(key, ctr0, dead, n_live: int, k: int):
+    """k distinct live cards per lane: ordered draws + bubble insertion,
+    slot -> card by rank-shifts past the ascending ``dead`` scalars."""
+    sorted_chosen, cards = [], []
     for t in range(k):
-        x = draws[t]
+        x = uniform_int(key, ctr0 + t, n_live - t)
         for c in sorted_chosen:
             x = x + (x >= c).astype(I32)
-        # maintain the ascending chosen list
         new_sorted, carry = [], x
         for c in sorted_chosen:
             new_sorted.append(jnp.minimum(carry, c))
             carry = jnp.maximum(carry, c)
         new_sorted.append(carry)
         sorted_chosen = new_sorted
-        # live slot -> card id
         card = x
         for d in dead:
             card = card + (card >= d).astype(I32)
@@ -93,22 +80,16 @@ def _sample_cards(dead, shape, k):
     return cards
 
 
-def _masks_of(cards, shape):
-    """Four suit masks from a list of tile-shaped card-id arrays.
-
-    Packed construction (measured +15% kernel throughput): two suits per
-    int32 plane — suits 0/1 in bits 2..14 / 18..30 of plane A, suits 2/3
-    likewise in plane B — so each card needs one select pair instead of
-    four, and ``card // 13`` is the exact 2-op ``(card * 5) >> 6`` for
-    ids < 64. Unpacked to the four 15-bit masks once at the end.
-    """
-    pa = jnp.zeros(shape, I32)
-    pb = jnp.zeros(shape, I32)
-    one = jnp.ones(shape, I32)
+def _masks_of(cards):
+    """Four suit masks from per-lane card ids: two suits per int32 plane
+    (suits 0/1 in plane A, 2/3 in plane B), unpacked once at the end;
+    ``card // 13`` is the exact ``(card * 5) >> 6`` for ids < 64."""
+    pa = jnp.zeros_like(cards[0])
+    pb = jnp.zeros_like(cards[0])
     for card in cards:
         suit = jnp.right_shift(card * 5, 6)
         p = (card - 13 * suit + 2) | jnp.left_shift(suit & 1, 4)
-        bitv = jnp.left_shift(one, p)
+        bitv = jnp.left_shift(jnp.ones_like(card), p)
         hi = suit > 1
         pa = pa | jnp.where(hi, 0, bitv)
         pb = pb | jnp.where(hi, bitv, 0)
@@ -117,280 +98,209 @@ def _masks_of(cards, shape):
             pb & mask15, jnp.right_shift(pb, 16) & mask15]
 
 
-def _sample_board_masks(dead, shape):
-    """Board (5 cards) suit masks for hand-vs-hand rollouts."""
-    return _masks_of(_sample_cards(dead, shape, 5), shape)
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
-def _make_equity_kernel(n_dead: int, n_draw: int):
-    def kernel(seed_ref, dead_ref, hmask_ref, vmask_ref, wins_ref, ties_ref):
-        i = pl.program_id(0)
+def _compiler_params():
+    return pl_triton.CompilerParams(num_warps=NUM_WARPS, num_stages=1)
 
-        @pl.when(i == 0)
-        def _():
-            wins_ref[0, 0] = I32(0)
-            ties_ref[0, 0] = I32(0)
 
-        pltpu.prng_seed(seed_ref[0] + i)
-        dead = [dead_ref[j] for j in range(n_dead)]
-        bm = _masks_of(_sample_cards(dead, TILE, n_draw), TILE)
-        vh = eval_masks_cmp_impl(*[m | hmask_ref[s]
-                                   for s, m in enumerate(bm)])
-        vv = eval_masks_cmp_impl(*[m | vmask_ref[s]
-                                   for s, m in enumerate(bm)])
-        wins_ref[0, 0] += jnp.sum((vh > vv).astype(I32))
-        ties_ref[0, 0] += jnp.sum((vh == vv).astype(I32))
+# ---------------------------------------------------------------------------
+# N fixed hands against each other on sampled boards
+# ---------------------------------------------------------------------------
+
+def _lane0_slot(n_hands: int) -> int:
+    """Index of the first-lane offset in the showdown params."""
+    return 1 + DEAD_SLOTS + 4 * n_hands
+
+
+def _showdown_kernel(n_hands: int, n_dead: int, n_iter: int, scale: int):
+    """params: [seed, dead x DEAD_SLOTS, masks x 4 per hand, lane0, pad].
+    Outputs: per lane, each hand's scaled share (ties split exactly by
+    lcm(1..N)) and the count of hand 0's joint wins."""
+    n_draw = 5 - (n_dead - 2 * n_hands)
+    n_live = 52 - n_dead
+
+    def kernel(params_ref, *out_refs):
+        pid = pl.program_id(0)
+        lane = (params_ref[_lane0_slot(n_hands)] + pid * BLOCK
+                + jax.lax.broadcasted_iota(I32, (BLOCK,), 0))
+        key = stream_keys(params_ref[0], lane)
+        dead = [params_ref[1 + j] for j in range(n_dead)]
+        hm = [[params_ref[1 + DEAD_SLOTS + 4 * h + s] for s in range(4)]
+              for h in range(n_hands)]
+
+        def body(i, acc):
+            bm = _masks_of(_sample_cards(key, i * DRAWS, dead, n_live,
+                                         n_draw))
+            values = [eval_masks_cmp_impl(*[b | m for b, m in zip(bm, hm[h])])
+                      for h in range(n_hands)]
+            vmax = values[0]
+            for v in values[1:]:
+                vmax = jnp.maximum(vmax, v)
+            win = [v == vmax for v in values]
+            cnt = win[0].astype(I32)
+            for w in win[1:]:
+                cnt = cnt + w.astype(I32)
+            share = I32(scale) // cnt
+            out = [a + jnp.where(w, share, 0) for a, w in zip(acc, win)]
+            out.append(acc[-1] + (win[0] & (cnt > 1)).astype(I32))
+            return tuple(out)
+
+        zero = jnp.zeros((BLOCK,), I32)
+        acc = jax.lax.fori_loop(0, n_iter, body, (zero,) * (n_hands + 1))
+        for ref, a in zip(out_refs, acc):
+            ref[...] = a
 
     return kernel
 
 
-@partial(jax.jit, static_argnames=("n_programs", "interpret"))
-def equity_counts_pallas(seed, dead, hero_masks, villain_masks,
-                         n_programs: int, interpret: bool = False):
-    """(wins, ties) over ``n_programs * TILE_N`` rollouts.
-
-    ``seed``: int32 scalar; ``dead``: int32[D] ascending dead cards (hole
-    cards + any known board, whose suit masks must already be OR-ed into
-    ``*_masks``); ``*_masks``: int32[4] per side. Draws ``5 - (D - 4)``
-    board cards per rollout.
-    """
-    assert n_programs <= MAX_PROGRAMS_PER_LAUNCH, (
-        f"{n_programs} programs x {TILE_N} rollouts would overflow the "
-        f"int32 counters; chunk into launches of <= "
-        f"{MAX_PROGRAMS_PER_LAUNCH} (equity_vs_hand_pallas does this)")
-    n_dead = dead.shape[0]
-    n_draw = 5 - (n_dead - 4)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    wins, ties = pl.pallas_call(
-        _make_equity_kernel(n_dead, n_draw),
+@partial(jax.jit, static_argnames=("n_hands", "n_dead", "n_programs",
+                                   "n_iter", "scale", "interpret"))
+def showdown_counts(params, n_hands: int, n_dead: int, n_programs: int,
+                    n_iter: int, scale: int, interpret: bool = False):
+    """Per-program partials [n_hands + 1, n_programs] int32 (see
+    ``_showdown_kernel``) over ``n_programs * BLOCK * n_iter`` rollouts."""
+    lanes = jax.ShapeDtypeStruct((n_programs * BLOCK,), I32)
+    outs = pl.pallas_call(
+        _showdown_kernel(n_hands, n_dead, n_iter, scale),
         grid=(n_programs,),
-        in_specs=[smem, smem, smem, smem],
-        out_specs=(smem, smem),
-        out_shape=(jax.ShapeDtypeStruct((1, 1), I32),
-                   jax.ShapeDtypeStruct((1, 1), I32)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
+        in_specs=[pl.BlockSpec(params.shape, lambda i: (0,))],
+        out_specs=[pl.BlockSpec((BLOCK,), lambda i: (i,))] * (n_hands + 1),
+        out_shape=[lanes] * (n_hands + 1),
+        backend="triton",
+        compiler_params=_compiler_params(),
         interpret=interpret,
-    )(jnp.asarray(seed, I32).reshape(1),
-      jnp.asarray(dead, I32).reshape(n_dead),
-      jnp.asarray(hero_masks, I32).reshape(4),
-      jnp.asarray(villain_masks, I32).reshape(4))
-    return wins[0, 0], ties[0, 0]
+        name="equity_showdown",
+    )(params)
+    return jnp.stack([o.reshape(n_programs, BLOCK).sum(axis=1)
+                      for o in outs])
 
 
-def _sweep_kernel(seed_ref, dead_ref, hmask_ref, wins_ref, ties_ref):
-    """Hero-vs-random rollouts for a batch of hero hands.
-
-    Grid (hands, chunks): the sequential chunk dimension accumulates into
-    per-hand SMEM counters; each program samples villain (2) + board (5)
-    from the hero's 50 live cards.
-    """
-    h = pl.program_id(0)
-    c = pl.program_id(1)
-
-    @pl.when(c == 0)
-    def _():
-        wins_ref[h] = I32(0)
-        ties_ref[h] = I32(0)
-
-    pltpu.prng_seed(seed_ref[0] + h * I32(1000003) + c)
-    dead = [dead_ref[h, 0], dead_ref[h, 1]]
-    cards = _sample_cards(dead, TILE, 7)
-    vm = _masks_of(cards[:2], TILE)
-    bm = _masks_of(cards[2:], TILE)
-    vh = eval_masks_cmp_impl(*[b | hmask_ref[h, s] for s, b in enumerate(bm)])
-    vv = eval_masks_cmp_impl(*[b | v for b, v in zip(bm, vm)])
-    wins_ref[h] += jnp.sum((vh > vv).astype(I32))
-    ties_ref[h] += jnp.sum((vh == vv).astype(I32))
-
-
-@partial(jax.jit, static_argnames=("n_chunks", "interpret"))
-def sweep_counts_pallas(seed, dead, hero_masks, n_chunks: int,
-                        interpret: bool = False):
-    """Per-hand (wins[H], ties[H]) over ``n_chunks * TILE_N`` rollouts each.
-
-    ``dead``: int32[H, 2] each hero's (ascending) hole cards;
-    ``hero_masks``: int32[H, 4] suit masks of those holes.
-    """
-    assert n_chunks <= MAX_PROGRAMS_PER_LAUNCH, (
-        f"{n_chunks} chunks x {TILE_N} rollouts/hand would overflow the "
-        f"per-hand int32 counters; chunk into launches of <= "
-        f"{MAX_PROGRAMS_PER_LAUNCH} (equity_sweep_pallas does this)")
-    H = dead.shape[0]
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    wins, ties = pl.pallas_call(
-        _sweep_kernel,
-        grid=(H, n_chunks),
-        in_specs=[smem, smem, smem],
-        out_specs=(smem, smem),
-        out_shape=(jax.ShapeDtypeStruct((H,), I32),
-                   jax.ShapeDtypeStruct((H,), I32)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(jnp.asarray(seed, I32).reshape(1),
-      jnp.asarray(dead, I32),
-      jnp.asarray(hero_masks, I32))
-    return wins, ties
-
-
-def equity_sweep_pallas(seed: int, heroes, n_rollouts_per_hand: int,
-                        interpret: bool = False):
-    """Equity-vs-random for [H, 2] hero hands via one fused kernel launch.
-
-    Returns (equity[H] as float64 numpy, rollouts per hand)."""
-    import numpy as np
-
-    from montecarlo_tpu.ops.evaluator import suit_masks_from_cards
-
-    heroes = jnp.asarray(heroes, I32)
-    dead = jnp.sort(heroes, axis=1)
-    hm = jnp.stack(suit_masks_from_cards(heroes), axis=1)  # [H, 4]
-    n_chunks_total = max(1, -(-n_rollouts_per_hand // TILE_N))
-    w = np.zeros((heroes.shape[0],), np.float64)
-    t = np.zeros((heroes.shape[0],), np.float64)
-    n = 0
-    # int32 headroom: split into launches of at most MAX_PROGRAMS_PER_LAUNCH
-    # sequential chunks per hand (one launch in any practical sweep).
-    for start in range(0, n_chunks_total, MAX_PROGRAMS_PER_LAUNCH):
-        n_chunks = min(MAX_PROGRAMS_PER_LAUNCH, n_chunks_total - start)
-        wi, ti = sweep_counts_pallas(seed + 7919 * start, dead, hm, n_chunks,
-                                     interpret=interpret)
-        w += np.asarray(wi, np.float64)
-        t += np.asarray(ti, np.float64)
-        n += n_chunks * TILE_N
-    eq = (w + 0.5 * t) / n
-    return eq, n
-
-
-def _make_multiway_kernel(n_hands: int, n_dead: int, n_draw: int, scale: int):
-    def kernel(seed_ref, dead_ref, hmask_ref, shares_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            for h in range(n_hands):
-                shares_ref[h] = I32(0)
-
-        pltpu.prng_seed(seed_ref[0] + i)
-        dead = [dead_ref[j] for j in range(n_dead)]
-        bm = _masks_of(_sample_cards(dead, TILE, n_draw), TILE)
-        # Comparison keys fit in 23 bits: int32 order == uint32 order
-        # (Mosaic has no unsigned vector max).
-        values = [
-            eval_masks_cmp_impl(*[m | hmask_ref[h, s]
-                                  for s, m in enumerate(bm)])
-            for h in range(n_hands)
-        ]
-        vmax = values[0]
-        for v in values[1:]:
-            vmax = jnp.maximum(vmax, v)
-        winners = [v == vmax for v in values]
-        cnt = winners[0].astype(I32)
-        for w in winners[1:]:
-            cnt = cnt + w.astype(I32)
-        share = I32(scale) // cnt  # scale = lcm(1..N): exact integer split
-        for h in range(n_hands):
-            shares_ref[h] += jnp.sum(jnp.where(winners[h], share, 0))
-
-    return kernel
-
-
-def equity_multiway_pallas(seed: int, hands, n_rollouts: int, board=(),
-                           interpret: bool = False):
-    """Multiway equity via the fused kernel: N hands against each other,
-    ties split exactly (integer shares scaled by lcm(1..N)).
-
-    Returns (equity float64[N], rollouts)."""
-    import math
-
-    import numpy as np
-
-    from montecarlo_tpu.ops.evaluator import suit_masks_from_cards
-
-    hands = jnp.asarray(hands, I32).reshape(-1, 2)
-    N = hands.shape[0]
-    board = jnp.asarray(board, I32).reshape(-1)
-    K = board.shape[0]
-    dead = jnp.sort(jnp.concatenate([hands.reshape(-1), board]))
-    bmask = (suit_masks_from_cards(board) if K
-             else [jnp.zeros((), I32)] * 4)
-    hm = jnp.stack([jnp.stack([m | b for m, b in
-                               zip(suit_masks_from_cards(hands[h]), bmask)])
-                    for h in range(N)])  # [N, 4]
-    scale = math.lcm(*range(1, N + 1))
-    # int32 counter headroom: scale * rollouts_per_launch < 2^31.
-    max_per_launch = (2**31 - 1) // (scale * TILE_N)
-    n_programs_total = max(1, -(-n_rollouts // TILE_N))
-    n_programs = min(n_programs_total, max_per_launch)
-
-    @partial(jax.jit, static_argnames=())
-    def run(seed, dead, hm):
-        smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-        return pl.pallas_call(
-            _make_multiway_kernel(N, int(dead.shape[0]), 5 - K, scale),
-            grid=(n_programs,),
-            in_specs=[smem, smem, smem],
-            out_specs=smem,
-            out_shape=jax.ShapeDtypeStruct((N,), I32),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary",)),
-            interpret=interpret,
-        )(jnp.asarray(seed, I32).reshape(1), dead, hm)
-
-    total_shares = np.zeros((N,), np.float64)
-    n = 0
-    launches = -(-n_programs_total // n_programs)
-    for i in range(launches):
-        total_shares += np.asarray(run(seed + 7919 * i, dead, hm), np.float64)
-        n += n_programs * TILE_N
-    eq = total_shares / (scale * n)
-    return eq, n
-
-
-def equity_vs_hand_counts(seed: int, hero, villain, n_rollouts: int,
-                          board=(), interpret: bool = False):
-    """Hand-vs-hand rollout counters, device-resident: NO host sync.
-
-    Returns ``(wins[L], ties[L], n)`` — per-launch int32 counter arrays
-    still on the device plus the total rollout count. Callers fetch (and
-    sum as python ints — the per-launch counters are int32-safe but their
-    total may not be) when convenient; steady-state benchmarks use this to
-    issue many launches back-to-back and pay the host round-trip once."""
-    from montecarlo_tpu.ops.evaluator import suit_masks_from_cards
-
-    hero = jnp.asarray(hero, I32)
-    villain = jnp.asarray(villain, I32)
-    board = jnp.asarray(board, I32).reshape(-1)
-    dead = jnp.sort(jnp.concatenate([hero, villain, board]))
-    bmask = (suit_masks_from_cards(board) if board.shape[0]
-             else [jnp.zeros((), I32)] * 4)
-    hm = jnp.stack([m | b for m, b in
-                    zip(suit_masks_from_cards(hero), bmask)])
-    vm = jnp.stack([m | b for m, b in
-                    zip(suit_masks_from_cards(villain), bmask)])
-    n_programs_total = max(1, -(-n_rollouts // TILE_N))
-    ws, ts, n = [], [], 0
-    # int32 headroom: split into launches of <= MAX_PROGRAMS_PER_LAUNCH
-    # programs (~2.1e9 rollouts) each.
-    for start in range(0, n_programs_total, MAX_PROGRAMS_PER_LAUNCH):
-        n_programs = min(MAX_PROGRAMS_PER_LAUNCH, n_programs_total - start)
-        wi, ti = equity_counts_pallas(seed + 7919 * start, dead, hm, vm,
-                                      n_programs, interpret=interpret)
-        ws.append(wi)
-        ts.append(ti)
-        n += n_programs * TILE_N
-    return jnp.stack(ws), jnp.stack(ts), n
+def showdown_params(seed: int, hands, board=()):
+    """Host-side packing of the showdown kernel's scalar inputs (lane0 =
+    0; a sharded caller sets its own). Returns (params, N, n_dead)."""
+    hands = np.asarray(hands, np.int32).reshape(-1, 2)
+    board = np.asarray(board, np.int32).reshape(-1)
+    dead = np.sort(np.concatenate([hands.reshape(-1), board]))
+    assert dead.shape[0] <= DEAD_SLOTS
+    bmask = (np.stack([np.asarray(m) for m in
+                       suit_masks_from_cards(jnp.asarray(board))])
+             if board.size else np.zeros(4, np.int32))
+    hm = np.stack([np.stack([np.asarray(m) for m in
+                             suit_masks_from_cards(jnp.asarray(h))]) | bmask
+                   for h in hands])  # [N, 4]
+    vals = np.concatenate([[seed & 0x7FFFFFFF],
+                           np.pad(dead, (0, DEAD_SLOTS - dead.shape[0]),
+                                  constant_values=NO_CARD),
+                           hm.reshape(-1), [0]]).astype(np.int32)
+    return (jnp.asarray(np.pad(vals, (0, _pow2(vals.size) - vals.size))),
+            hands.shape[0], dead.shape[0])
 
 
 def equity_vs_hand_pallas(seed: int, hero, villain, n_rollouts: int,
                           board=(), interpret: bool = False):
-    """Hand-vs-hand equity via the fused kernel, optionally on a known
-    partial ``board`` (flop or flop+turn). Returns (wins, ties, n)."""
-    ws, ts, n = equity_vs_hand_counts(seed, hero, villain, n_rollouts,
-                                      board, interpret=interpret)
-    w = sum(int(x) for x in jax.device_get(ws).ravel())
-    t = sum(int(x) for x in jax.device_get(ts).ravel())
-    return w, t, n
+    """Hand-vs-hand (wins, ties, n) of ``hero``, optionally on a known
+    partial ``board`` (flop or flop+turn); n >= ``n_rollouts``."""
+    params, _, n_dead = showdown_params(seed, [hero, villain], board)
+    n_programs, n_iter = _plan(n_rollouts, 2)
+    parts = showdown_counts(params, 2, n_dead, n_programs, n_iter, 2,
+                            interpret=interpret)
+    share, _, ties = (int(x) for x in np.asarray(parts, np.int64).sum(axis=1))
+    # hero share = 2 * wins + ties (scale 2)
+    return (share - ties) // 2, ties, n_programs * BLOCK * n_iter
+
+
+# ---------------------------------------------------------------------------
+# 169-hand sweep: each hero against a random villain on a random board
+# ---------------------------------------------------------------------------
+
+HERO_SLOTS = 8  # per hero: two ascending hole cards, four masks, pad
+
+
+def _sweep_kernel(n_programs: int, n_iter: int):
+    def kernel(params_ref, wins_ref, ties_ref):
+        h = pl.program_id(0)
+        pid = pl.program_id(1)
+        lane = (params_ref[1] + (h * n_programs + pid) * BLOCK
+                + jax.lax.broadcasted_iota(I32, (BLOCK,), 0))
+        key = stream_keys(params_ref[0], lane)
+        base = HERO_SLOTS * (h + 1)
+        dead = [params_ref[base], params_ref[base + 1]]
+        hm = [params_ref[base + 2 + s] for s in range(4)]
+
+        def body(i, acc):
+            w, t = acc
+            cards = _sample_cards(key, i * DRAWS, dead, 50, 7)
+            vm = _masks_of(cards[:2])
+            bm = _masks_of(cards[2:])
+            vh = eval_masks_cmp_impl(*[b | m for b, m in zip(bm, hm)])
+            vv = eval_masks_cmp_impl(*[b | v for b, v in zip(bm, vm)])
+            return (w + (vh > vv).astype(I32), t + (vh == vv).astype(I32))
+
+        zero = jnp.zeros((BLOCK,), I32)
+        w, t = jax.lax.fori_loop(0, n_iter, body, (zero, zero))
+        wins_ref[...] = w
+        ties_ref[...] = t
+
+    return kernel
+
+
+@partial(jax.jit, static_argnames=("n_heroes", "n_programs", "n_iter",
+                                   "interpret"))
+def sweep_counts(params, n_heroes: int, n_programs: int, n_iter: int,
+                 interpret: bool = False):
+    """Per-program partials (wins, ties), each [H, n_programs] int32,
+    over ``n_programs * BLOCK * n_iter`` rollouts per hero."""
+    lanes = jax.ShapeDtypeStruct((n_heroes * n_programs * BLOCK,), I32)
+    spec = pl.BlockSpec((BLOCK,), lambda h, i: (h * n_programs + i,))
+    w, t = pl.pallas_call(
+        _sweep_kernel(n_programs, n_iter),
+        grid=(n_heroes, n_programs),
+        in_specs=[pl.BlockSpec(params.shape, lambda h, i: (0,))],
+        out_specs=[spec, spec],
+        out_shape=[lanes, lanes],
+        backend="triton",
+        compiler_params=_compiler_params(),
+        interpret=interpret,
+        name="equity_sweep",
+    )(params)
+    return (w.reshape(n_heroes, n_programs, BLOCK).sum(axis=2),
+            t.reshape(n_heroes, n_programs, BLOCK).sum(axis=2))
+
+
+def sweep_params(seed: int, heroes):
+    """Host-side packing of the sweep kernel's inputs: row 0 holds the
+    seed and the first-lane offset (0; a sharded caller sets its own),
+    row h+1 hero h's ascending hole cards and suit masks."""
+    heroes = np.sort(np.asarray(heroes, np.int32).reshape(-1, 2), axis=1)
+    H = heroes.shape[0]
+    hm = np.stack([np.asarray(m) for m in
+                   suit_masks_from_cards(jnp.asarray(heroes))], axis=1)
+    rows = np.zeros((H + 1, HERO_SLOTS), np.int32)
+    rows[0, 0] = seed & 0x7FFFFFFF
+    rows[1:, :2] = heroes
+    rows[1:, 2:6] = hm
+    flat = rows.reshape(-1)
+    return jnp.asarray(np.pad(flat, (0, _pow2(flat.size) - flat.size)))
+
+
+def sweep_plan(n_rollouts_per_hand: int, n_programs_max: int = 64):
+    """(n_programs, n_iter) of one hero's rollouts."""
+    return _plan(n_rollouts_per_hand, 1, n_programs_max)
+
+
+def equity_sweep_pallas(seed: int, heroes, n_rollouts_per_hand: int,
+                        interpret: bool = False):
+    """Equity-vs-random for [H, 2] hero hands in one launch.
+
+    Returns (equity[H] as float64 numpy, rollouts per hand)."""
+    H = np.asarray(heroes).reshape(-1, 2).shape[0]
+    n_programs, n_iter = sweep_plan(n_rollouts_per_hand)
+    w, t = sweep_counts(sweep_params(seed, heroes), H, n_programs, n_iter,
+                        interpret=interpret)
+    n = n_programs * BLOCK * n_iter
+    w = np.asarray(w, np.int64).sum(axis=1)
+    t = np.asarray(t, np.int64).sum(axis=1)
+    return (w + 0.5 * t) / n, n

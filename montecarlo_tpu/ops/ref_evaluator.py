@@ -16,7 +16,7 @@ Faithfully preserved quirks:
   reference calls ``(ret 0 [] cards)`` at ``:133``, passing the whole hand
   through the ``hit`` argument.
 
-This module is the conformance oracle for the TPU evaluators; it is O(n^2)
+This module is the conformance oracle for the array evaluators; it is O(n^2)
 per hand and never used on a hot path.
 """
 

@@ -1,9 +1,9 @@
-"""Mesh scale-out: shard the tables/rollouts axis over TPU devices.
+"""Mesh scale-out: shard the tables/rollouts axis over the devices.
 
 The reference's only concurrency is JVM goroutines in one process (no
-NCCL/MPI/anything — ``server.clj:132-135`` TCP is the sole transport). The
-TPU-native equivalent: ``jax.sharding.Mesh`` + ``shard_map`` place rollout
-batches per device, and per-shard statistics reduce with ``psum`` over ICI.
+NCCL/MPI/anything — ``server.clj:132-135`` TCP is the sole transport). Here
+``jax.sharding.Mesh`` + ``shard_map`` place rollout batches per device,
+and per-shard statistics reduce with ``psum`` (NCCL between GPUs).
 All helpers are mesh-shape agnostic (1D "tables" axis over however many
 devices exist).
 """

@@ -1,15 +1,16 @@
-"""Device-mesh sharded rollouts with ICI collectives.
+"""Device-mesh sharded rollouts with collectives.
 
-Design (scaling-book recipe): pick a 1D mesh over all chips ("tables" axis),
-keep every rollout's state resident on its device, and reduce only the tiny
-win/tie counters with ``psum`` — the only bytes that ever cross ICI. The
-mesh shape is discovered at runtime, so the same code runs on one chip, a
-v4-8 slice, or an 8-device CPU test mesh.
+Design: a 1D mesh over all devices ("tables" axis), every rollout's state
+resident on its device, and only the tiny win/tie counters reduced with
+``psum`` — the only bytes that cross between devices. The mesh follows the
+algorithm alone (the cards of one host reach each other all to all), and
+its size is discovered at runtime, so the same code runs on one card, four
+cards, or an 8-device CPU test mesh.
 """
 
 from __future__ import annotations
 
-from functools import partial
+import functools
 from typing import Optional, Sequence
 
 import jax
@@ -55,24 +56,11 @@ def _local_counts(key, hero_masks, villain_masks, dead, batch, n_chunks):
     return w, t
 
 
-def sharded_equity_vs_hand(
-    mesh: Mesh,
-    key,
-    hero,
-    villain,
-    n_rollouts: int,
-    per_device_batch: int = 1 << 19,
-) -> EquityResult:
-    """Hand-vs-hand equity with rollouts sharded over the mesh and the
-    win/tie counters psum-reduced over ICI (BASELINE config 5's machinery)."""
-    n_dev = mesh.devices.size
-    hero = jnp.asarray(hero, I32)
-    villain = jnp.asarray(villain, I32)
-    batch = min(per_device_batch, max(1, n_rollouts // n_dev))
-    n_chunks = -(-n_rollouts // (batch * n_dev))
-
-    @partial(jax.jit, static_argnames=("batch", "n_chunks"))
-    def run(key, hero, villain, batch, n_chunks):
+@functools.lru_cache(maxsize=None)
+def _vs_hand_program(mesh: Mesh, batch: int, n_chunks: int):
+    """Jitted (key, hero, villain) -> psum'd (wins, ties); one per shape,
+    so repeated calls reuse the compiled program."""
+    def run(key, hero, villain):
         dead = jnp.sort(jnp.concatenate([hero, villain]))
         hm = suit_masks_from_cards(hero)
         vm = suit_masks_from_cards(villain)
@@ -86,30 +74,43 @@ def sharded_equity_vs_hand(
             shard_fn, mesh=mesh, in_specs=P(), out_specs=P(),
             check_vma=False)(key)
 
-    w, t = run(key, hero, villain, batch, n_chunks)
+    return jax.jit(run)
+
+
+def sharded_equity_vs_hand(
+    mesh: Mesh,
+    key,
+    hero,
+    villain,
+    n_rollouts: int,
+    per_device_batch: int = 1 << 19,
+    impl: str = "auto",
+) -> EquityResult:
+    """Hand-vs-hand equity with rollouts sharded over the mesh and the
+    win/tie counters psum-reduced over the mesh (BASELINE config 5's
+    machinery). ``impl`` as in ``rollout.equity.kernel_impl``: on a GPU
+    each device runs the Triton showdown kernel on its own lanes."""
+    from montecarlo_tpu.rollout.equity import kernel_impl, key_to_seed
+
+    if kernel_impl(impl) == "triton":
+        return _vs_hand_kernel(mesh, key_to_seed(key), hero, villain,
+                               n_rollouts)
+    n_dev = mesh.devices.size
+    hero = jnp.asarray(hero, I32)
+    villain = jnp.asarray(villain, I32)
+    batch = min(per_device_batch, max(1, n_rollouts // n_dev))
+    n_chunks = -(-n_rollouts // (batch * n_dev))
+
+    w, t = _vs_hand_program(mesh, batch, n_chunks)(key, hero, villain)
     n = batch * n_chunks * n_dev
     w, t = int(w), int(t)
     return EquityResult(wins=w, ties=t, losses=n - w - t, n=n)
 
 
-def equity_sweep(
-    mesh: Mesh,
-    key,
-    heroes,
-    n_rollouts_per_hand: int,
-    per_device_batch: int = 1 << 14,
-):
-    """Equity-vs-random for a batch of hero hands (e.g. the 169 canonical
-    starting hands) — every device rolls its share for *all* hands; the
-    [H] win/tie counters psum over ICI. Returns (equity[H], n_per_hand).
-    """
-    heroes = jnp.asarray(heroes, I32)  # [Hh, 2]
-    n_dev = mesh.devices.size
-    batch = min(per_device_batch, max(1, n_rollouts_per_hand // n_dev))
-    n_chunks = -(-n_rollouts_per_hand // (batch * n_dev))
-
-    @partial(jax.jit, static_argnames=("batch", "n_chunks"))
-    def run(key, heroes, batch, n_chunks):
+@functools.lru_cache(maxsize=None)
+def _sweep_xla_program(mesh: Mesh, batch: int, n_chunks: int):
+    """Jitted (key, heroes) -> psum'd per-hero (wins, ties)."""
+    def run(key, heroes):
         def one_hero(hkey, hero):
             dead = jnp.sort(hero)
             hm = suit_masks_from_cards(hero)
@@ -142,57 +143,124 @@ def equity_sweep(
             shard_fn, mesh=mesh, in_specs=(P(), P()), out_specs=P(),
             check_vma=False)(key, heroes)
 
-    w, t = run(key, heroes, batch, n_chunks)
+    return jax.jit(run)
+
+
+def equity_sweep(
+    mesh: Mesh,
+    key,
+    heroes,
+    n_rollouts_per_hand: int,
+    per_device_batch: int = 1 << 14,
+    impl: str = "auto",
+):
+    """Equity-vs-random for a batch of hero hands (e.g. the 169 canonical
+    starting hands) — every device rolls its share for *all* hands; the
+    [H] win/tie counters psum over the mesh. Returns (equity[H],
+    n_per_hand). ``impl`` as in ``rollout.equity.kernel_impl``: on a GPU
+    each device runs the Triton sweep kernel on its own global lanes."""
+    from montecarlo_tpu.rollout.equity import kernel_impl
+
+    if kernel_impl(impl) == "triton":
+        return _equity_sweep_kernel(mesh, key, heroes, n_rollouts_per_hand)
+    heroes = jnp.asarray(heroes, I32)  # [Hh, 2]
+    n_dev = mesh.devices.size
+    batch = min(per_device_batch, max(1, n_rollouts_per_hand // n_dev))
+    n_chunks = -(-n_rollouts_per_hand // (batch * n_dev))
+
+    w, t = _sweep_xla_program(mesh, batch, n_chunks)(key, heroes)
     n = batch * n_chunks * n_dev
     eq = (np.asarray(w) + 0.5 * np.asarray(t)) / n
     return eq, n
 
 
-def sharded_equity_pallas(
+@functools.lru_cache(maxsize=None)
+def _sweep_kernel_program(mesh: Mesh, H: int, n_programs: int, n_iter: int,
+                          interpret: bool):
+    """Jitted params -> psum'd per-program (wins, ties) [H, n_programs]."""
+    from montecarlo_tpu.ops.pallas_equity import BLOCK, sweep_counts
+
+    lanes_per_dev = H * n_programs * BLOCK
+
+    def shard_fn(params):
+        lane0 = jax.lax.axis_index(AXIS) * lanes_per_dev
+        w, t = sweep_counts(params.at[1].set(lane0), H, n_programs, n_iter,
+                            interpret=interpret)
+        return jax.lax.psum(w, AXIS), jax.lax.psum(t, AXIS)
+
+    return jax.jit(jax.shard_map(shard_fn, mesh=mesh, in_specs=P(),
+                                 out_specs=P(), check_vma=False))
+
+
+def _equity_sweep_kernel(mesh: Mesh, key, heroes, n_rollouts_per_hand: int,
+                         interpret: bool = False):
+    """The sweep on the Triton kernel, sharded: device d's lanes start at
+    d * (lanes per device), so no two devices share a random stream; the
+    per-program partials psum over the mesh and sum on the host in int64.
+    """
+    from montecarlo_tpu.ops.pallas_equity import (
+        BLOCK, sweep_params, sweep_plan,
+    )
+    from montecarlo_tpu.rollout.equity import key_to_seed
+
+    n_dev = mesh.devices.size
+    H = np.asarray(heroes).reshape(-1, 2).shape[0]
+    n_programs, n_iter = sweep_plan(-(-n_rollouts_per_hand // n_dev))
+    w, t = _sweep_kernel_program(mesh, H, n_programs, n_iter, interpret)(
+        sweep_params(key_to_seed(key), heroes))
+    n = n_programs * BLOCK * n_iter * n_dev
+    w = np.asarray(w, np.int64).sum(axis=1)
+    t = np.asarray(t, np.int64).sum(axis=1)
+    return (w + 0.5 * t) / n, n
+
+
+@functools.lru_cache(maxsize=None)
+def _showdown_program(mesh: Mesh, n_dead: int, n_programs: int, n_iter: int,
+                      interpret: bool):
+    """Jitted heads-up params -> psum'd per-program partials [3, n]."""
+    from montecarlo_tpu.ops.pallas_equity import (
+        BLOCK, _lane0_slot, showdown_counts,
+    )
+
+    lanes_per_dev = n_programs * BLOCK
+
+    def shard_fn(params):
+        lane0 = jax.lax.axis_index(AXIS) * lanes_per_dev
+        parts = showdown_counts(params.at[_lane0_slot(2)].set(lane0), 2,
+                                n_dead, n_programs, n_iter, 2,
+                                interpret=interpret)
+        return jax.lax.psum(parts, AXIS)
+
+    return jax.jit(jax.shard_map(shard_fn, mesh=mesh, in_specs=P(),
+                                 out_specs=P(), check_vma=False))
+
+
+def _vs_hand_kernel(
     mesh: Mesh,
     seed: int,
     hero,
     villain,
     n_rollouts: int,
     board=(),
+    interpret: bool = False,
 ) -> EquityResult:
-    """The headline fused Pallas kernel composed with the mesh: each device
-    runs its share of kernel programs (distinct PRNG streams via the axis
-    index), and the two int32 counters psum over ICI. This is the v4-8
-    deployment shape of the north-star metric; on one chip it degenerates
-    to the single-kernel path. TPU-only (hardware PRNG primitives).
-    """
-    from montecarlo_tpu.ops.evaluator import suit_masks_from_cards
-    from montecarlo_tpu.ops.pallas_equity import TILE_N, equity_counts_pallas
+    """Heads-up equity on the Triton showdown kernel over the mesh: each
+    device runs its share of programs on its own global lanes, and the
+    per-program partials psum over the mesh (summed on the host in
+    int64). ``n`` >= ``n_rollouts``."""
+    from montecarlo_tpu.ops.pallas_equity import (
+        BLOCK, _plan, showdown_params,
+    )
 
     n_dev = mesh.devices.size
-    hero = jnp.asarray(hero, I32)
-    villain = jnp.asarray(villain, I32)
-    board = jnp.asarray(board, I32).reshape(-1)
-    dead = jnp.sort(jnp.concatenate([hero, villain, board]))
-    bmask = (suit_masks_from_cards(board) if board.shape[0]
-             else [jnp.zeros((), I32)] * 4)
-    hm = jnp.stack([m | b for m, b in
-                    zip(suit_masks_from_cards(hero), bmask)])
-    vm = jnp.stack([m | b for m, b in
-                    zip(suit_masks_from_cards(villain), bmask)])
-    programs_per_dev = max(1, -(-n_rollouts // (TILE_N * n_dev)))
-
-    @jax.jit
-    def run(seed, dead, hm, vm):
-        def shard_fn(seed, dead, hm, vm):
-            dev_seed = seed[0] + jax.lax.axis_index(AXIS) * I32(0x9E3779)
-            w, t = equity_counts_pallas(dev_seed, dead, hm, vm,
-                                        programs_per_dev)
-            return (jax.lax.psum(w, AXIS), jax.lax.psum(t, AXIS))
-
-        return jax.shard_map(shard_fn, mesh=mesh,
-                             in_specs=(P(), P(), P(), P()), out_specs=P(),
-                             check_vma=False)(seed, dead, hm, vm)
-
-    w, t = run(jnp.asarray([seed], I32), dead, hm, vm)
-    n = programs_per_dev * TILE_N * n_dev
-    w, t = int(w), int(t)
+    params, _, n_dead = showdown_params(seed, [hero, villain], board)
+    n_programs, n_iter = _plan(-(-n_rollouts // n_dev), 2)
+    share, _, t = (int(x) for x in
+                   np.asarray(_showdown_program(mesh, n_dead, n_programs,
+                                                n_iter, interpret)(params),
+                              np.int64).sum(axis=1))
+    w = (share - t) // 2
+    n = n_programs * BLOCK * n_iter * n_dev
     return EquityResult(wins=w, ties=t, losses=n - w - t, n=n)
 
 
@@ -225,7 +293,7 @@ def sharded_selfplay_perpetual(
     throughput shape (config 4 at scale). Returns (final_states,
     total_hands) with the hand count psum-free (the final reduction is a
     plain sum over the sharded hand_idx field, which XLA lowers to an
-    all-reduce over ICI).
+    all-reduce).
     """
     from montecarlo_tpu.rollout.selfplay import play_hands_perpetual
 
@@ -260,20 +328,16 @@ def sharded_selfplay_kernel(
     blocks_per_device: int = 64,
     n_steps: int = 256,
 ):
-    """The whole-step engine kernel composed with the mesh: each device
-    runs its share of table blocks (distinct hardware-PRNG streams via the
-    axis index) and the completed-hand counter psum-reduces over ICI — the
-    v4-8 deployment shape of the betting-hands metric. TPU-only (the
-    Mosaic PRNG primitives do not run on CPU); on one chip it degenerates
-    to the single-kernel path. Returns (final_packed_state, total_hands).
-    """
-    import numpy as np
-
+    """The packed-block engine composed with the mesh: each device runs
+    its share of table blocks and the completed-hand counter psum-reduces
+    over the mesh. Each shard passes its global block offset, so the
+    generator draws for every table exactly what a one-device run of the
+    same state draws. Returns (final_packed_state, total_hands)."""
     from montecarlo_tpu.ops.pallas_engine import (
-        TABLES_PER_BLOCK,
         _field_layout,
-        pack_state,
+        initial_packed_state,
         run_perpetual_prng,
+        TABLES_PER_BLOCK,
     )
 
     n_dev = mesh.devices.size
@@ -282,30 +346,24 @@ def sharded_selfplay_kernel(
     layout, _ = _field_layout(seats, cfg.rules)
     hand_ct_row = layout["hand_ct"][0]
 
-    keys = jax.random.split(jax.random.key(seed), n_tables)
-    decks = jax.vmap(lambda k: jax.random.permutation(k, 52))(keys)
-    base = 2 * seats
-    pos = list(range(base)) + [base + 1, base + 2, base + 3, base + 5,
-                               base + 7]
-    state0 = pack_state(cfg, np.asarray(decks)[:, pos])
-    state0 = jax.device_put(state0, NamedSharding(mesh, P(AXIS)))
+    state0 = jax.device_put(initial_packed_state(seed, cfg, n_tables),
+                            NamedSharding(mesh, P(AXIS)))
 
     @jax.jit
-    def run(seed_arr, state):
-        def shard_fn(seed_arr, state):
-            dev_seed = seed_arr[0] + jax.lax.axis_index(AXIS) * I32(7919)
-            out = run_perpetual_prng(dev_seed, state, seats, n_steps,
+    def run(state):
+        def shard_fn(state):
+            block0 = jax.lax.axis_index(AXIS) * state.shape[0]
+            out = run_perpetual_prng(seed, state, seats, n_steps,
                                      cfg.small_blind, cfg.big_blind,
-                                     rules=cfg.rules)
+                                     rules=cfg.rules, block0=block0)
             hands = jnp.sum(out[:, hand_ct_row])
             return out, jax.lax.psum(hands, AXIS)
 
-        return jax.shard_map(shard_fn, mesh=mesh,
-                             in_specs=(P(), P(AXIS)),
+        return jax.shard_map(shard_fn, mesh=mesh, in_specs=P(AXIS),
                              out_specs=(P(AXIS), P()),
-                             check_vma=False)(seed_arr, state)
+                             check_vma=False)(state)
 
-    final, hands = run(jnp.asarray([seed], I32), state0)
+    final, hands = run(state0)
     return final, int(hands)
 
 
@@ -316,18 +374,12 @@ def sharded_selfplay_kernel_det(
     actions,
     cards,
     n_steps: int,
-    interpret: bool = False,
 ):
-    """Deterministic-mode engine kernel composed with the mesh: table
+    """Deterministic-mode packed engine composed with the mesh: table
     blocks, injected action streams, and per-hand deal stashes all shard
     over the tables axis; the completed-hand counter psum-reduces over it.
-
-    Unlike ``sharded_selfplay_kernel`` this needs no hardware PRNG, so
-    with ``interpret=True`` it executes on the 8-device virtual CPU mesh —
-    the multi-device coverage of the kernel deployment shape
-    (dryrun_multichip item 6, tests/test_parallel.py). Runs eagerly (an
-    eager shard_map dispatches the interpreter per-op; jitting the inlined
-    interpreter program is minutes of XLA:CPU compile).
+    Per-device trajectory equality with the XLA engine is pinned in
+    tests/test_parallel.py.
 
     Returns (final packed state [n_blocks, F, 8, 128], total hands)."""
     from montecarlo_tpu.ops.pallas_engine import (
@@ -341,7 +393,7 @@ def sharded_selfplay_kernel_det(
     def shard_fn(state, actions, cards):
         out = run_perpetual_det(state, actions, cards, cfg.num_seats,
                                 n_steps, cfg.small_blind, cfg.big_blind,
-                                rules=cfg.rules, interpret=interpret)
+                                rules=cfg.rules)
         hands = jnp.sum(out[:, hand_ct_row])
         return out, jax.lax.psum(hands, AXIS)
 
@@ -349,11 +401,11 @@ def sharded_selfplay_kernel_det(
     state = jax.device_put(jnp.asarray(state, I32), shard)
     actions = jax.device_put(jnp.asarray(actions, I32), shard)
     cards = jax.device_put(jnp.asarray(cards, I32), shard)
-    out, hands = jax.shard_map(
+    out, hands = jax.jit(jax.shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P(AXIS), P(AXIS), P(AXIS)),
         out_specs=(P(AXIS), P()),
-        check_vma=False)(state, actions, cards)
+        check_vma=False))(state, actions, cards)
     return out, int(hands)
 
 
@@ -366,20 +418,14 @@ def sharded_net_kernel_det(
     n_steps: int,
     n_banks=None,
     seat_to_bank=None,
-    interpret: bool = False,
 ):
-    """Deterministic NET/league kernel over the mesh: table blocks and
+    """Deterministic NET/league engine over the mesh: table blocks and
     deal stashes shard over the tables axis, the banked net weights
     replicate to every device, and the completed-hand counter
     psum-reduces — the multi-device form of the ES/league evaluation
     shape (every seat plays a net, argmax selection, injected deals).
-
-    Zero PRNG, so ``interpret=True`` executes on the 8-device virtual
-    CPU mesh (dryrun_multichip item 7); per-device trajectory equality
-    with the single-device kernel and the XLA net pipeline is pinned in
-    tests/test_parallel.py. Runs eagerly like
-    ``sharded_selfplay_kernel_det`` (jitting the inlined interpreter
-    program is minutes of XLA:CPU compile).
+    Per-device equality with the one-device run is pinned in
+    tests/test_parallel.py.
 
     Returns (final packed state [n_blocks, F, 8, 128], total hands)."""
     from montecarlo_tpu.ops.pallas_engine import (
@@ -394,7 +440,7 @@ def sharded_net_kernel_det(
         out = run_net_det(state, cards, weights, cfg.num_seats, n_steps,
                           cfg.small_blind, cfg.big_blind,
                           cfg.starting_stack, cfg.rules, n_banks=n_banks,
-                          seat_to_bank=seat_to_bank, interpret=interpret)
+                          seat_to_bank=seat_to_bank)
         hands = jnp.sum(out[:, hand_ct_row])
         return out, jax.lax.psum(hands, AXIS)
 
@@ -403,9 +449,9 @@ def sharded_net_kernel_det(
     state = jax.device_put(jnp.asarray(state, I32), shard)
     cards = jax.device_put(jnp.asarray(cards, I32), shard)
     weights = tuple(jax.device_put(jnp.asarray(w), rep) for w in weights)
-    out, hands = jax.shard_map(
+    out, hands = jax.jit(jax.shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P(AXIS), P(AXIS)) + (P(),) * len(weights),
         out_specs=(P(AXIS), P()),
-        check_vma=False)(state, cards, *weights)
+        check_vma=False))(state, cards, *weights)
     return out, int(hands)

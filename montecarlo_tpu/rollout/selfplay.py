@@ -125,8 +125,8 @@ def play_hands_perpetual(
     This is the steady-state throughput form: ``play_hands`` pays the
     worst-case action bound per hand (72 steps for 6-max) with most steps
     masked no-ops; here a hand completes every ~E[actions] steps (~27 for
-    6-max random play) at ~1.7x the per-step price — measured 1.6x more
-    hands/s on a v5e (see PERF.md round-2 roofline).
+    6-max random play) at a higher per-step price, for more hands/s
+    overall (see PERF.md).
 
     Returns ``(final_states, hands_completed)`` (total across tables).
     """

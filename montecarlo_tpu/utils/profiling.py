@@ -1,7 +1,7 @@
 """Observability: profiler traces and throughput/CI meters.
 
 The reference's only observability is bare ``println``s on the hot path
-(``board.clj:99-107``, ``helpers.clj:42``). TPU-native replacements:
+(``board.clj:99-107``, ``helpers.clj:42``). Replacements here:
 ``jax.profiler`` traces (never print inside jitted code) and host-side
 meters for the two BASELINE metrics — rollouts/sec and equity-CI-width at
 fixed wall-clock.

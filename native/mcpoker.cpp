@@ -1,7 +1,7 @@
 // mcpoker: native host runtime for the interactive table path.
 //
 // The reference's runtime is JVM actor loops (core.async go-loops + STM,
-// board.clj:131-138 / player.clj:58-69). The TPU rebuild's batch path is
+// board.clj:131-138 / player.clj:58-69). The rebuild's batch path is
 // the JAX device engine; THIS file is the native equivalent of the
 // reference's per-table runtime for the latency-sensitive interactive
 // server: a single-table Texas Hold'em engine with the exact same betting

@@ -289,3 +289,28 @@ def test_exact_vs_range_agrees_with_mc_preflop():
     mc = equity_vs_range(jax.random.key(3), hero, vill, 400_000)
     lo, hi = mc.ci95
     assert lo - 0.003 <= exact.equity <= hi + 0.003, (exact.equity, mc.ci95)
+
+
+def test_equity_exact_multiway_two_hands_matches_equity_exact():
+    from montecarlo_tpu.rollout.equity import (
+        equity_exact, equity_exact_multiway,
+    )
+
+    hero = [make_card(0, 14), make_card(0, 13)]
+    villain = [make_card(1, 12), make_card(2, 12)]
+    flop = [make_card(3, 2), make_card(3, 9), make_card(1, 5)]
+    eq = equity_exact_multiway([hero, villain], board=flop)
+    ref = equity_exact(hero, villain, board=flop).equity
+    assert abs(eq[0] - ref) < 1e-12 and abs(eq.sum() - 1.0) < 1e-12
+
+
+def test_equity_exact_multiway_three_hands_sums_to_one():
+    from montecarlo_tpu.rollout.equity import equity_exact_multiway
+
+    trio = [[make_card(0, 14), make_card(0, 13)],
+            [make_card(1, 12), make_card(2, 12)],
+            [make_card(3, 11), make_card(3, 10)]]
+    turn = [make_card(1, 2), make_card(2, 9), make_card(0, 5),
+            make_card(2, 7)]
+    eq = equity_exact_multiway(trio, board=turn)
+    assert abs(eq.sum() - 1.0) < 1e-12 and np.all(eq >= 0)

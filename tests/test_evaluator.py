@@ -2,7 +2,7 @@
 
 The 10 golden vectors come verbatim from the reference's only healthy suite
 (``test/montecarlo/hand_evaluator_test.clj:57-137``) — they are the ranking
-spec. The bitmask TPU evaluator is then cross-checked against the naive
+spec. The bitmask array evaluator is then cross-checked against the naive
 oracle on random and structured 7-card hands.
 """
 

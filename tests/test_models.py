@@ -96,8 +96,8 @@ def test_push_fold_solver_logic_on_synthetic_matrix():
 
 
 def test_push_fold_artifact_matches_published_nash():
-    # The committed solution table (computed on TPU from 32k-rollout
-    # matchup equities) must reproduce the textbook 10bb Nash numbers.
+    # The committed solution table (computed from 32k-rollout matchup
+    # equities) must reproduce the textbook 10bb Nash numbers.
     import json
     import os
 
@@ -217,8 +217,8 @@ def test_push_fold_cr_artifact_matches_book():
 def test_es_trainer_improves_toy_fitness():
     """ES machinery sanity on an analytic objective: fitness is a smooth
     function of the flattened weights with a known optimum direction; the
-    trainer must ascend it. (The kernel evaluator is TPU-only — the
-    hardware run is scripts/train_es_kernel.py / validate_tpu.)"""
+    trainer must ascend it. (The packed-engine evaluator is exercised by
+    the tests below and, at full size, by scripts/train_es_kernel.py.)"""
     import numpy as np
 
     from montecarlo_tpu.models.policy_net import init_params
@@ -428,7 +428,7 @@ def test_bot_constructors_implement_their_rules():
     assert np.all(logits[:, 1] < np.maximum(logits[:, 0], logits[:, 3]))
     assert np.all(logits[:, 2] < np.maximum(logits[:, 0], logits[:, 3]))
 
-    # bf16-robustness property: TPU matmuls round their INPUTS to
+    # bf16-robustness property: a matrix unit may round its INPUTS to
     # bf16, so hidden activations must stay near zero where bf16
     # granularity is relative (an affine +C offset construction was
     # measured to erase small score terms on hardware — bots.py

@@ -1,10 +1,11 @@
-"""Whole-step Pallas engine kernel vs the XLA engine, exact trajectories.
+"""Packed-block engine vs the XLA engine, exact trajectories.
 
-The kernel's deterministic mode takes the raw per-step actions and the
-per-hand 17-card deals as inputs (no PRNG), so it runs under Pallas
-interpret mode on CPU and must reproduce the XLA ``step_table`` engine
-bit-exactly when both consume the same streams: stacks, hand counts,
-stage/cursor, seat masks, and the live street levels, at several horizons.
+The packed engine's deterministic mode takes the raw per-step actions and
+the per-hand 17-card deals as inputs, and must reproduce the XLA
+``step_table`` engine bit-exactly when both consume the same streams:
+stacks, hand counts, stage/cursor, seat masks, and the live street levels,
+at several horizons. The generator mode is checked statistically against
+``rollout.policy.random_policy``.
 """
 
 import jax
@@ -12,6 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from montecarlo_tpu.engine.replay import (
+    decks_from_cards,
+    replay_injected,
+    replay_net_argmax,
+)
 from montecarlo_tpu.engine.state import TableConfig, init_state, redeal
 from montecarlo_tpu.engine.step import _select_tree, clamp_action, step_table
 from montecarlo_tpu.ops.pallas_engine import (
@@ -56,114 +62,16 @@ def _streams(seed):
     return actions, cards.astype(np.int32)
 
 
-def _streams_capacity_safe(seed):
-    """Injected stream with production-like raise density (3%, vs the
-    adversarial 8% of ``_streams``): the real policy bounds raises to
-    2/street, so L=6 street levels always suffice; this stream keeps the
-    raise rate low enough that a full 1024-table block stays within
-    capacity (seed chosen by exhaustive CPU interpret check — det mode is
-    bit-exact between interpret and Mosaic, so hardware validation can
-    then assert 1024/1024 tables exact with zero overflow latches)."""
-    rng = np.random.default_rng(seed)
-    u = rng.random((48, T))
-    actions = np.where(u < 0.20, -1,
-                       np.where(u < 0.97, 0,
-                                rng.integers(1, 21, (48, T)))).astype(np.int32)
-    cards = np.argsort(rng.random((T, HMAX, 52)), axis=-1)[..., :N_CARDS]
-    return actions, cards.astype(np.int32)
-
-
 def _decks_from_cards(cards):
-    """[T, H, 17] dealt cards -> [T, H, 52] full decks whose consumption
-    order (state.py:begin_hand: holes round-robin, burn offsets) yields
-    exactly those cards."""
-    Tn, H, _ = cards.shape
-    decks = np.zeros((Tn, H, 52), np.int64)
-    base = 2 * P
-    # positions consumed by begin_hand
-    pos = list(range(base)) + [base + 1, base + 2, base + 3, base + 5,
-                               base + 7]
-    decks[..., pos] = cards
-    # unused positions get the remaining cards, ascending
-    unused_pos = [p for p in range(52) if p not in pos]
-    all_cards = np.arange(52)
-    for t in range(Tn):
-        for h in range(H):
-            rest = np.setdiff1d(all_cards, cards[t, h], assume_unique=False)
-            decks[t, h, unused_pos] = rest
-    return decks.astype(np.int32)
+    """[T, H, 17] dealt cards -> [T, H, 52] decks (engine/replay.py)."""
+    return decks_from_cards(cards, P)
 
 
 def _replica(actions, decks, n_steps, cfg=CFG):
-    """XLA engine driven by the same injected streams. Returns (final
-    state, per-position settled delta sums [P]). step_table rotates and
-    posts blinds inside the step, so the settled stacks of a finished
-    hand are observed by recomputing the step's settle half with the same
-    engine functions (bit-identical by construction)."""
-    from montecarlo_tpu.engine.step import (
-        _advance_streets,
-        apply_action,
-        settle_showdown,
-    )
-
-    actions = jnp.asarray(actions[:n_steps])
-    decks = jnp.asarray(decks)
-
-    def one(table_actions, table_decks):
-        st = init_state(jax.random.key(0), cfg)
-        st = redeal(st, table_decks[0])
-        hand_start = jnp.full((P,), cfg.starting_stack, jnp.int32)
-        acc = jnp.zeros((P,), jnp.int32)
-        done_ct = jnp.zeros((), jnp.int32)
-        bust = jnp.full((P,), -1, jnp.int32)
-
-        def body(carry, a):
-            st, hand_start, acc, done_ct, bust = carry
-            prev = st.hand_idx
-            ca = clamp_action(st, a)
-            nxt = step_table(st, ca, rules=cfg.rules)
-            # hand COMPLETED this step: a redeal happened, or (tournament)
-            # the table froze terminal after its final settlement.
-            done = (nxt.hand_idx != prev) | (nxt.hand_over & ~st.hand_over)
-            # observation-only recompute of the settled stacks
-            settled = settle_showdown(
-                _advance_streets(apply_action(st, ca, rules=cfg.rules),
-                                 cfg.rules), rules=cfg.rules).stacks
-            if cfg.rules == "tournament":
-                # seat view = roll(positional, button) (selfplay.py:
-                # play_tournament seat_view)
-                seat_stacks = settled
-                for b in range(1, P):
-                    seat_stacks = jnp.where(
-                        st.button == b, jnp.roll(settled, b), seat_stacks)
-                newly = done & (seat_stacks <= 0) & (bust < 0)
-                bust = jnp.where(newly, done_ct, bust)
-            done_ct = done_ct + done
-            acc = acc + jnp.where(done, settled - hand_start, 0)
-            # next hand's pre-blind stacks: the players list rotates by 1
-            # (reference/standard) or by the distance to the next alive
-            # position (tournament, state.py:next_hand).
-            if cfg.rules == "tournament":
-                alive = settled > 0
-                idxs = jnp.arange(P)
-                shift = jnp.clip(jnp.min(jnp.where(alive & (idxs >= 1),
-                                                   idxs, P)), 1, P - 1)
-                pre = settled
-                for k in range(1, P):
-                    pre = jnp.where(shift == k, jnp.roll(settled, -k), pre)
-            else:
-                pre = jnp.roll(settled, -1)
-            hand_start = jnp.where(done, pre, hand_start)
-            redealt = redeal(nxt, table_decks[jnp.minimum(nxt.hand_idx,
-                                                          HMAX - 1)])
-            nxt = _select_tree(nxt.hand_idx != prev, redealt, nxt)
-            return (nxt, hand_start, acc, done_ct, bust), None
-
-        (st, _, acc, done_ct, bust), _ = jax.lax.scan(
-            body, (st, hand_start, acc, done_ct, bust), table_actions)
-        return st, acc, done_ct, bust
-
-    return jax.vmap(one, in_axes=(1, 0))(actions, decks)
+    """XLA engine driven by the same injected streams (engine/replay.py).
+    Returns (final state, per-position settled delta sums, hands done,
+    per-seat bust hand)."""
+    return replay_injected(actions, decks, n_steps, cfg)
 
 
 def _bitmask(bools):
@@ -189,8 +97,7 @@ def test_kernel_matches_engine(rules, n_steps, seed):
     cards_in = jnp.asarray(
         cards.transpose(1, 2, 0).reshape(HMAX, N_CARDS, *TILE)[None])
     out = run_perpetual_det(packed, act_in, cards_in, P, n_steps,
-                            cfg.small_blind, cfg.big_blind, rules=rules,
-                            interpret=True)
+                            cfg.small_blind, cfg.big_blind, rules=rules)
     out = np.asarray(out)
 
     ref, ref_deltas, ref_done, ref_bust = _replica(actions, decks,
@@ -270,7 +177,7 @@ def test_kernel_features_match_models():
         cards.transpose(1, 2, 0).reshape(HMAX, N_CARDS, *pe.TILE)[None])
     out = run_perpetual_det(packed, act_in, cards_in, P, n_steps,
                             cfg.small_blind, cfg.big_blind,
-                            rules=cfg.rules, interpret=True)
+                            rules=cfg.rules)
 
     # kernel-side features on the packed output block
     layout, _ = pe._field_layout(P, cfg.rules)
@@ -317,7 +224,7 @@ def test_kernel_heads_up():
         cards.transpose(1, 2, 0).reshape(hmax, n_cards, *pe.TILE)[None])
     out = np.asarray(run_perpetual_det(
         packed, act_in, cards_in, P2, n_steps,
-        cfg.small_blind, cfg.big_blind, interpret=True))
+        cfg.small_blind, cfg.big_blind))
 
     # XLA replica with injected streams (hole/burn offsets for P=2)
     base = 2 * P2
@@ -368,60 +275,15 @@ def test_kernel_heads_up():
 
 
 def xla_net_det_reference(cfg, bots_by_seat, decks, n_steps, hmax):
-    """XLA net-pipeline trajectory driver for det-mode pinning: every
-    seat plays its packed bot by argmax, deals are injected from a
-    per-table deck stash (row min(hand_idx, hmax-1) — the same clamp the
-    det kernels apply). Returns (final vmapped TableState, hands done).
-
-    SHARED between the CPU suite (interpret mode) and
-    scripts/validate_tpu.py's on-hardware Mosaic check so the two pins
-    cannot drift apart.
-    """
-    from montecarlo_tpu.engine.street import bets_needed
-    from montecarlo_tpu.engine.step import head_info
-    from montecarlo_tpu.models.features import NUM_FEATURES, state_features
-    from montecarlo_tpu.models.policy_net import (
-        action_from_index, policy_logits,
-    )
-
-    P = cfg.num_seats
-
-    def one(table_decks):
-        st = init_state(jax.random.key(0), cfg)
-        st = redeal(st, table_decks[0])
-
-        def body(carry, _):
-            st, done_ct = carry
-            prev = st.hand_idx
-            pos, _, _ = head_info(st)
-            seat = (st.button + pos) % P  # bank by STABLE seat
-            feats = state_features(st)
-            logits_all = jnp.stack([policy_logits(b, feats)
-                                    for b in bots_by_seat])  # [P, 4]
-            logits = jnp.sum(jnp.where(jnp.arange(P)[:, None] == seat,
-                                       logits_all, 0.0), axis=0)
-            # engine arrays are indexed by hand-order POSITION
-            free = bets_needed(st.bets, pos) == 0
-            logits = logits.at[0].add(jnp.where(free, -1e9, 0.0))
-            a = action_from_index(jnp.argmax(logits), st)
-            nxt = step_table(st, clamp_action(st, a), rules=cfg.rules)
-            done_ct = done_ct + (nxt.hand_idx != prev)
-            redealt = redeal(nxt, table_decks[jnp.minimum(nxt.hand_idx,
-                                                          hmax - 1)])
-            nxt = _select_tree(nxt.hand_idx != prev, redealt, nxt)
-            return (nxt, done_ct), None
-
-        (st, done_ct), _ = jax.lax.scan(
-            body, (st, jnp.zeros((), jnp.int32)), None, length=n_steps)
-        return st, done_ct
-
-    return jax.vmap(one)(jnp.asarray(decks))
+    """XLA net-pipeline trajectory driver for det-mode pinning
+    (engine/replay.py; ``hmax`` is the stash depth of ``decks``)."""
+    assert np.asarray(decks).shape[1] == hmax
+    return replay_net_argmax(cfg, bots_by_seat, decks, n_steps)
 
 
 def test_net_kernel_det_matches_xla_net_pipeline():
-    """Deterministic NET kernel (argmax pick, injected deals — zero PRNG,
-    so the ES/league deployment shape executes in interpret mode on CPU)
-    vs the XLA net pipeline: every seat plays a packed rule bot
+    """Deterministic NET mode (argmax pick, injected deals — the
+    ES/league deployment shape) vs the XLA net pipeline: every seat plays a packed rule bot
     (models/bots.py — huge logit margins, so f32 summation-order ulps
     cannot flip the argmax), seats map to two banked nets exactly like
     league evaluation, and the trajectories must agree field-for-field."""
@@ -450,7 +312,7 @@ def test_net_kernel_det_matches_xla_net_pipeline():
     out = np.asarray(run_net_det(
         packed, cards_in, weights, P, n_steps, cfg.small_blind,
         cfg.big_blind, cfg.starting_stack, cfg.rules, n_banks=2,
-        seat_to_bank=stb, interpret=True))
+        seat_to_bank=stb))
 
     ref, ref_done = xla_net_det_reference(cfg, bots_by_seat, decks,
                                           n_steps, hmax)
